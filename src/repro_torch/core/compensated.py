@@ -105,17 +105,6 @@ def neumaier_sum(x: torch.Tensor, axis: int = -1,
     return _blocked_sum2(x, torch.zeros_like(x), _resolve_block(x.shape[-1], block))
 
 
-def _dot_impl(x: torch.Tensor, y: torch.Tensor, axis: int,
-              block: Optional[int]) -> torch.Tensor:
-    if x.shape != y.shape:
-        raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs {tuple(y.shape)}")
-    ax = _normalize_axis(axis, x.ndim)
-    x = torch.movedim(x, ax, -1)
-    y = torch.movedim(y, ax, -1)
-    p, e = two_prod(x, y)
-    return _blocked_sum2(p, e, _resolve_block(x.shape[-1], block))
-
-
 def compensated_dot(x: torch.Tensor, y: torch.Tensor, axis: int = -1,
                     block: Optional[int] = None) -> torch.Tensor:
     """Ogita-Rump Dot2 inner product: ~twice-working-precision accuracy.
@@ -124,7 +113,13 @@ def compensated_dot(x: torch.Tensor, y: torch.Tensor, axis: int = -1,
     carries the ``two_sum`` rounding errors.  ``axis`` selects the reduction
     axis (batched over the rest); operands must have matching shapes.
     """
-    return _dot_impl(x, y, axis, block)
+    if x.shape != y.shape:
+        raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs {tuple(y.shape)}")
+    ax = _normalize_axis(axis, x.ndim)
+    x = torch.movedim(x, ax, -1)
+    y = torch.movedim(y, ax, -1)
+    p, e = two_prod(x, y)
+    return _blocked_sum2(p, e, _resolve_block(x.shape[-1], block))
 
 
 # IEEE-754 layouts: dtype -> (bit-int dtype, mantissa bits, exponent bias,
@@ -189,7 +184,7 @@ def compensated_norm(x: torch.Tensor, axis: Optional[int] = None) -> torch.Tenso
     es = elog.amax(dim=ax, keepdim=True)
     es = torch.where(es == sentinel, torch.zeros_like(es), es)   # all-zero: scale 1
     xs = m * _pow2(e - es, x.dtype)
-    r = sqrt(_dot_impl(xs, xs, ax, None))          # in [1, ~2*sqrt(n)]
+    r = sqrt(compensated_dot(xs, xs, ax))          # in [1, ~2*sqrt(n)]
     es = es.squeeze(ax)
     # r * 2**es as two exact power-of-two multiplies ...
     half = torch.div(es, 2, rounding_mode="floor")

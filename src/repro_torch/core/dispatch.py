@@ -265,15 +265,11 @@ def choose_route(plan: Optional[ozaki2.Plan], kind: str = "gemm",
 def _kernel_matmul(a: torch.Tensor, b: torch.Tensor, plan: ozaki2.Plan) -> torch.Tensor:
     from repro_torch.kernels import ops  # deferred: kernels import core, not vice versa
 
-    m, k = a.shape
-    n = b.shape[1]
-    bm, bn, bk = choose_blocks(m, k, n)
-    if _matmul_kind(n) == "gemv":
-        ap = _pad_axis(_pad_axis(a, 0, bm), 1, bk)
-        bp = _pad_axis(b, 0, bk)
-        return ops.ozaki_gemv(ap, bp, plan=plan, bm=bm, bk=bk)[:m]
-    ap, bp, _ = pad_operands(a, b, (bm, bn, bk))
-    return ops.ozaki_gemm(ap, bp, plan=plan, bm=bm, bn=bn, bk=bk)[:m, :n]
+    # ops pads the (hi, lo) operands to these blocks and slices the result back.
+    bm, bn, bk = choose_blocks(a.shape[0], a.shape[1], b.shape[1])
+    if _matmul_kind(b.shape[1]) == "gemv":
+        return ops.ozaki_gemv(a, b, plan=plan, bm=bm, bk=bk)
+    return ops.ozaki_gemm(a, b, plan=plan, bm=bm, bn=bn, bk=bk)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
