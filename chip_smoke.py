@@ -21,6 +21,27 @@ Phases (each prints its results; any failed check makes the script exit 1):
   cg     the same solve on the reference route: both converge, their
          compensated residual histories are bitwise equal, ||Kx - y||/||y||
          <= 1e-9, and the GEMV ran iterations + 1 times on the main path.
+  stencil the 7-point Laplacian on a seeded 256^3 grid: ``dispatch.stencil7``
+         kernel vs reference route (bitwise), against native FP64 (<= 8u * 7 *
+         max|u| * max|c|); ``stencil7``'s kernel against its plain version at
+         256^3 and at 37 x 29 x 51, in every output representation and at two
+         CUDA blocks; times beside ``F.conv3d`` f64 and the bound.
+  jacobi the stencil's main path, with its launch count set to 0 just before
+         and read just after: ``jacobi_solve`` at 256^3, omega = 2/3, 50 sweeps;
+         the kernel launched sweeps + 1 times, the residual history decreases,
+         and the reference route gives a bitwise-equal history and u.
+  spmv   HPCG's operator (27-point stencil, diagonal 26, off-diagonals -1, on
+         its default 104^3 local grid) in Blocked-ELL form built on the card:
+         ``dispatch.spmv`` kernel vs reference route (bitwise), against native
+         FP64 (<= 16u relative to sum|a| * max|x|); ``spmv_bell``'s kernel
+         against its plain version there and on a ragged random matrix, in every
+         output representation and at two row blocks; times beside
+         ``torch.sparse`` CSR f64 and the bound.
+  cg_bell the SpMV's main path, launch count set to 0 just before and read just
+         after: ``cg_solve_bell`` on HPCG's operator with b = A 1 (tol 1e-10);
+         it converges (||Ax - b||/||b|| <= 1e-9, ||x - 1||inf <= 1e-6), the
+         kernel launched iterations + 1 times, and the reference route's first
+         50 iterations give a bitwise-equal history.
 Then one JSON line describing each kernel, and the contract's last line.
 
 Tolerances: every kernel and route comparison is bitwise (0 differing
@@ -43,6 +64,10 @@ N = 8192
 # H100 SXM peaks (NVIDIA data sheet; dense): int8 tensor cores and HBM3.
 INT8_OPS_PER_S = 1979e12
 BYTES_PER_S = 3.35e12
+GRID = 256               # the stencil's and Jacobi's grid, GRID^3 points
+JACOBI_SWEEPS = 50
+HPCG_N = 104             # HPCG's default local grid (hpcg.dat: 104 104 104)
+CG_REF_ITERS = 50        # CG iterations compared across routes
 
 FAILURES = []
 
@@ -95,6 +120,239 @@ def bound(m, k, n, r):
     t_bytes = 8.0 * (m * k + k * n + m * n) / BYTES_PER_S
     t_ops = 2.0 * m * n * k * r / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def byte_bound(nbytes):
+    """Least time (ms) to move nbytes at the card's memory rate."""
+    return nbytes / BYTES_PER_S * 1e3
+
+
+def stencil_phases(dev, gen):
+    """The stencil and Jacobi phases; returns the stencil7 entry of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import dispatch
+    from repro_torch.hpc import jacobi
+    from repro_torch.kernels import ozaki_stencil, ref
+
+    # -------------------------------------------------------------- stencil
+    plan = dispatch.get_plan(8, margin_bits=4)
+    check(plan.r == 15, f"stencil: plan r = {plan.r}")
+    u = torch.randn((GRID,) * 3, generator=gen, device=dev, dtype=torch.float64)
+    c = jacobi.laplacian_coeffs(device=dev)
+    v_k = dispatch.stencil7(u, c)
+    v_r = dispatch.stencil7(u, c, mode="ref")
+    check(n_diff(v_k, v_r) == 0, f"stencil: {GRID}^3 kernel vs reference route, "
+          f"{n_diff(v_k, v_r)} differing elements")
+    want = ref.stencil7_f64(u, c)
+    err = float((v_k - want).abs().max())
+    lim = 8 * U * 7 * float(u.abs().max()) * float(c.abs().max())
+    check(err <= lim, f"stencil: error vs native FP64 {err:.3e} <= 8u*7*max|u|*max|c| "
+          f"= {lim:.3e}")
+    del v_r
+    tune = dispatch.get_tuning("stencil7", u.shape)
+    blocks = [(int(tune["bz"]), int(tune["by"])), (32, 2)]
+    u_hi, u_lo, c_res, _ = ozaki_stencil._decompose(u, c, plan)
+    cases = [(u_hi, u_lo, c_res, GRID, rep, blocks[0]) for rep in ("f64", "digits", "ds")]
+    cases.append((u_hi, u_lo, c_res, GRID, "f64", blocks[1]))
+    ur = torch.randn((37, 29, 51), generator=gen, device=dev, dtype=torch.float64)
+    cr = torch.randn(7, generator=gen, device=dev, dtype=torch.float64)
+    rh, rl, rc, _ = ozaki_stencil._decompose(ur, cr, plan)
+    cases += [(rh, rl, rc, "37x29x51", rep, blk) for rep in ("f64", "digits", "ds")
+              for blk in blocks]
+    err_kp = 0.0
+    for h, lo, cres, name, rep, blk in cases:
+        k_out = ozaki_stencil._launch(h, lo, cres, plan, rep, *blk)
+        p_out = ozaki_stencil._contract_ref(h, lo, cres, plan, rep)
+        d = n_diff(k_out, p_out)
+        if name == GRID and rep == "f64":
+            err_kp = max(err_kp, float((k_out - p_out).abs().max()))
+        check(d == 0, f"stencil: kernel vs plain version at {name}, {rep}, block {blk}, "
+              f"{d} differing elements")
+        del k_out, p_out
+    weight = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float64, device=dev)
+    for (i, j, k), ci in zip(((1, 1, 1), (0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1),
+                              (1, 1, 0), (1, 1, 2)), c):
+        weight[0, 0, i, j, k] = ci
+
+    def conv():
+        return F.conv3d(u[None, None], weight, padding=1)[0, 0]
+    conv_err = float((conv() - want).abs().max())
+    check(conv_err <= lim, f"stencil: F.conv3d computes the same function ({conv_err:.3e})")
+    t = {"ms": time_ms(lambda: ozaki_stencil._launch(u_hi, u_lo, c_res, plan, "f64",
+                                                     *blocks[0]), reps=10),
+         "plain_ms": time_ms(lambda: ozaki_stencil._contract_ref(u_hi, u_lo, c_res, plan,
+                                                                 "f64"), reps=3),
+         "library_ms": time_ms(conv, reps=5),
+         "wrapper_ms": time_ms(lambda: ozaki_stencil.stencil7(u, c, plan), reps=5),
+         "wrapper_ref_ms": time_ms(lambda: ozaki_stencil.stencil7_ref(u, c, plan), reps=3)}
+    nbytes = 16 * u.numel()
+    print(f"stencil: {GRID}^3 kernel {t['ms']:.3f} ms (block {blocks[0]}), plain "
+          f"{t['plain_ms']:.3f} ms, F.conv3d f64 {t['library_ms']:.3f} ms, bound "
+          f"{byte_bound(nbytes):.4f} ms ({nbytes} B); with Phase 1 and the epilogue: "
+          f"stencil7 {t['wrapper_ms']:.3f} ms, stencil7_ref {t['wrapper_ref_ms']:.3f} ms",
+          flush=True)
+    del u_hi, u_lo, v_k, want, u
+
+    # --------------------------------------------------------------- jacobi
+    f = torch.randn((GRID,) * 3, generator=gen, device=dev, dtype=torch.float64)
+    ozaki_stencil.stencil7.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_k = jacobi.jacobi_solve(f, omega=2.0 / 3.0, tol=0.0, maxiter=JACOBI_SWEEPS)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    launches = ozaki_stencil.stencil7.launches
+    check(launches == res_k.iters + 1 == JACOBI_SWEEPS + 1,
+          f"jacobi: stencil7 launched sweeps + 1 = {launches} times")
+    h = res_k.history
+    check(all(b < a for a, b in zip(h, h[1:])),
+          f"jacobi: residual history decreases ({h[0]:.6e} -> {h[-1]:.6e})")
+    t0 = time.perf_counter()
+    res_r = jacobi.jacobi_solve(f, omega=2.0 / 3.0, tol=0.0, maxiter=JACOBI_SWEEPS, mode="ref")
+    torch.cuda.synchronize()
+    t_r = time.perf_counter() - t0
+    check(res_r.history == h and n_diff(res_r.u, res_k.u) == 0,
+          f"jacobi: reference route over {JACOBI_SWEEPS} sweeps gives a bitwise-equal "
+          f"history and u")
+    print(f"jacobi: {GRID}^3, omega 2/3, {JACOBI_SWEEPS} sweeps; kernel route "
+          f"{t_k * 1e3 / (JACOBI_SWEEPS + 1):.3f} ms/sweep, reference route "
+          f"{t_r * 1e3 / (JACOBI_SWEEPS + 1):.3f} ms/sweep (host clock, per stencil "
+          f"application incl. the norm)", flush=True)
+    return {"name": "stencil7", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ozaki_stencil.cu",
+            "replaces": "src/repro/kernels/ozaki_stencil.py:98",
+            "launches": launches, "max_abs_err": err_kp, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": byte_bound(nbytes), "bound_by": "bytes",
+            "library_ms": t["library_ms"]}
+
+
+def hpcg_operator(n, dev):
+    """HPCG's matrix in Blocked-ELL form, bw = 27, built on the card: row
+    ix + n*iy + n*n*iz has 26 on the diagonal and -1 for each neighbour in the
+    3 x 3 x 3 box (GenerateProblem_ref.cpp); a slot whose neighbour lies outside
+    the grid points at the row itself with value 0.0."""
+    import torch
+
+    idx = torch.arange(n ** 3, device=dev)
+    iz, iy, ix = idx // (n * n), (idx // n) % n, idx % n
+    d = torch.tensor([(sz, sy, sx) for sz in (-1, 0, 1) for sy in (-1, 0, 1)
+                      for sx in (-1, 0, 1)], device=dev)
+    jz, jy, jx = iz[:, None] + d[:, 0], iy[:, None] + d[:, 1], ix[:, None] + d[:, 2]
+    inside = (jz >= 0) & (jz < n) & (jy >= 0) & (jy < n) & (jx >= 0) & (jx < n)
+    col = torch.where(inside, jz * n * n + jy * n + jx, idx[:, None]).to(torch.int32)
+    centre = (d == 0).all(dim=1)
+    one = torch.ones((), dtype=torch.float64, device=dev)
+    val = torch.where(inside, torch.where(centre, 26.0 * one, -one), 0.0 * one)
+    return val.contiguous(), col.contiguous()
+
+
+def spmv_phases(dev, gen):
+    """The SpMV and sparse-CG phases; returns the spmv_bell entry of the kernels line."""
+    import torch
+
+    from repro_torch.core import dispatch
+    from repro_torch.hpc import cg
+    from repro_torch.kernels import ozaki_spmv, ref
+
+    # ----------------------------------------------------------------- spmv
+    a_val, a_col = hpcg_operator(HPCG_N, dev)
+    m, bw = a_val.shape
+    check(m == HPCG_N ** 3 and bw == 27 and int((a_val != 0).sum()) == (3 * HPCG_N - 2) ** 3,
+          f"spmv: HPCG operator {m} x {bw}, {int((a_val != 0).sum())} nonzeros")
+    plan = dispatch.get_plan(bw, margin_bits=4)
+    check(plan.r == 15, f"spmv: plan r = {plan.r}")
+    x = torch.randn(m, generator=gen, device=dev, dtype=torch.float64)
+    y_k = dispatch.spmv(a_val, a_col, x)
+    y_r = dispatch.spmv(a_val, a_col, x, mode="ref")
+    check(n_diff(y_k, y_r) == 0, f"spmv: kernel vs reference route, {n_diff(y_k, y_r)} "
+          f"differing elements")
+    want = ref.spmv_bell_f64(a_val, a_col, x)
+    denom = a_val.abs().sum(dim=1) * x.abs().max()
+    err = float(((y_k - want).abs() / denom).max()) / U
+    check(err <= 16, f"spmv: error vs native FP64 {err:.3f} u relative to sum|a|*max|x| "
+          f"(<= 16 u)")
+    del y_r
+    br = int(dispatch.get_tuning("spmv_bell", a_val.shape)["br"])
+    rows = (br, 64)
+    ops_hpcg = ozaki_spmv._decompose_operands(a_val, a_col, x, plan)[:5]
+    rm, rn, rbw = 100_003, 77_777, 13
+    rv = torch.randn((rm, rbw), generator=gen, device=dev, dtype=torch.float64)
+    rv *= torch.exp(torch.empty((rm, 1), device=dev, dtype=torch.float64).uniform_(
+        -8, 8, generator=gen))
+    rv[torch.rand((rm, rbw), generator=gen, device=dev) < 0.2] = 0.0
+    rcol = torch.randint(0, rn, (rm, rbw), generator=gen, device=dev, dtype=torch.int32)
+    rx = torch.randn(rn, generator=gen, device=dev, dtype=torch.float64)
+    rplan = dispatch.get_plan(rbw, margin_bits=4)
+    ops_ragged = ozaki_spmv._decompose_operands(rv, rcol, rx, rplan)[:5]
+    err_kp = 0.0
+    for name, opnds, p in (("HPCG 104^3", ops_hpcg, plan),
+                           (f"{rm}x{rn}, bw {rbw}", ops_ragged, rplan)):
+        for rep in ("f64", "digits", "ds"):
+            for b in rows:
+                k_out = ozaki_spmv._launch(*opnds, p, rep, b)
+                p_out = ozaki_spmv._contract_ref(*opnds, p, rep)
+                d = n_diff(k_out, p_out)
+                if p is plan and rep == "f64":
+                    err_kp = max(err_kp, float((k_out - p_out).abs().max()))
+                check(d == 0, f"spmv: kernel vs plain version at {name}, {rep}, {b} rows a "
+                      f"block, {d} differing elements")
+    nz = a_val != 0
+    crow = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(nz.sum(dim=1), 0)
+    csr = torch.sparse_csr_tensor(crow, a_col[nz].to(torch.int64), a_val[nz], (m, m))
+    lib_err = float(((csr @ x - want).abs() / denom).max()) / U
+    check(lib_err <= 16, f"spmv: torch.sparse CSR computes the same function ({lib_err:.3f} u)")
+    t = {"ms": time_ms(lambda: ozaki_spmv._launch(*ops_hpcg, plan, "f64", br), reps=10),
+         "plain_ms": time_ms(lambda: ozaki_spmv._contract_ref(*ops_hpcg, plan, "f64"), reps=3),
+         "library_ms": time_ms(lambda: csr @ x, reps=10),
+         "wrapper_ms": time_ms(lambda: ozaki_spmv.spmv_bell(a_val, a_col, x, plan), reps=5),
+         "wrapper_ref_ms": time_ms(lambda: ozaki_spmv.spmv_bell_ref(a_val, a_col, x, plan),
+                                   reps=3)}
+    nbytes = 12 * a_val.numel() + 8 * x.numel() + 8 * m
+    print(f"spmv: HPCG {HPCG_N}^3 kernel {t['ms']:.3f} ms ({br} rows a block), plain "
+          f"{t['plain_ms']:.3f} ms, torch.sparse CSR f64 {t['library_ms']:.3f} ms, bound "
+          f"{byte_bound(nbytes):.4f} ms ({nbytes} B); with Phase 1 and the epilogue: "
+          f"spmv_bell {t['wrapper_ms']:.3f} ms, spmv_bell_ref {t['wrapper_ref_ms']:.3f} ms",
+          flush=True)
+    del ops_hpcg, ops_ragged, csr, y_k, want
+
+    # -------------------------------------------------------------- cg_bell
+    b = a_val.sum(dim=1)                      # A 1, exact: small integers
+    ozaki_spmv.spmv_bell.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_k = cg.cg_solve_bell(a_val, a_col, b, tol=1e-10, maxiter=2000)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    launches = ozaki_spmv.spmv_bell.launches
+    check(launches == res_k.iters + 1,
+          f"cg_bell: spmv_bell launched iterations + 1 = {launches} times")
+    rel = float(torch.linalg.vector_norm(ref.spmv_bell_f64(a_val, a_col, res_k.x) - b)
+                / torch.linalg.vector_norm(b))
+    xerr = float((res_k.x - 1.0).abs().max())
+    check(res_k.converged and rel <= 1e-9 and xerr <= 1e-6,
+          f"cg_bell: converged in {res_k.iters} iterations, ||Ax - b||/||b|| = {rel:.3e}, "
+          f"||x - 1||inf = {xerr:.3e}")
+    t0 = time.perf_counter()
+    res_r = cg.cg_solve_bell(a_val, a_col, b, tol=1e-10, maxiter=CG_REF_ITERS, mode="ref")
+    torch.cuda.synchronize()
+    t_r = time.perf_counter() - t0
+    n_cmp = min(CG_REF_ITERS, res_k.iters) + 1
+    check(res_r.history[:n_cmp] == res_k.history[:n_cmp],
+          f"cg_bell: reference route's first {n_cmp - 1} iterations give a bitwise-equal "
+          f"history")
+    print(f"cg_bell: HPCG {HPCG_N}^3, {res_k.iters} iterations; kernel route "
+          f"{t_k * 1e3 / max(res_k.iters, 1):.3f} ms/iteration, reference route "
+          f"{t_r * 1e3 / max(res_r.iters, 1):.3f} ms/iteration (host clock, per iteration "
+          f"incl. the first matvec)", flush=True)
+    return {"name": "spmv_bell", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ozaki_spmv.cu",
+            "replaces": "src/repro/kernels/ozaki_spmv.py:121",
+            "launches": launches, "max_abs_err": err_kp, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": byte_bound(nbytes), "bound_by": "bytes",
+            "library_ms": t["library_ms"]}
 
 
 def smi_line():
@@ -278,6 +536,11 @@ def main():
           f"{t_cg_r * 1e3 / max(res_r.iters, 1):.3f} ms/iteration (host clock, per "
           f"iteration incl. the first matvec)", flush=True)
 
+    del kmat, y, res_k, res_r
+    torch.cuda.empty_cache()
+    stencil_kernel = stencil_phases(dev, gen)
+    spmv_kernel = spmv_phases(dev, gen)
+
     # -------------------------------------------------------------- summary
     g_bound, g_by = bound(N, N, N, plan.r)
     v_bound, v_by = bound(N, N, 1, plan.r)
@@ -294,9 +557,10 @@ def main():
          "launches": launches["gemv_hilo"], "max_abs_err": gemv[1]["err"],
          "ms": gemv[1]["ms"], "plain_ms": gemv[1]["plain_ms"], "bound_ms": v_bound,
          "bound_by": v_by, "library_ms": gemv[1]["library_ms"]},
+        stencil_kernel, spmv_kernel,
     ]
-    print(f"kernels: gemm_hilo {launches['gemm_hilo']} launches, gemv_hilo "
-          f"{launches['gemv_hilo']} launches on the main path", flush=True)
+    print("kernels: " + ", ".join(f"{k['name']} {k['launches']} launches" for k in kernels)
+          + " on the main paths", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}", file=sys.stderr)
         return 1

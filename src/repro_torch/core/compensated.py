@@ -9,9 +9,10 @@ Blocked EFT execution, as in the reference:
      table (``dispatch.reduce_block``);
   2. within each block a pairwise ``two_sum`` tree (``log2(block)`` lane-wise
      steps over all blocks at once) gives per-block partials ``(s_b, c_b)``;
-  3. a carry-propagating loop over the ``nblocks`` partials folds them with
-     ``two_sum`` (the reference's ``lax.scan``), feeding the carries into the
-     compensation stream;
+  3. a carry-propagating fold over the ``nblocks`` partials, in order, folds
+     them with ``two_sum`` (the reference's ``lax.scan``), feeding the carries
+     into the compensation stream (``_carry_scan``: two sequential running
+     sums on the host and elementwise error terms);
   4. the result is ``s + c``.
 Every ``two_sum``/``two_prod`` is exact and only the compensation stream is
 summed in working precision, which gives the Ogita-Rump Sum2/Dot2 bound for any
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,13 +71,28 @@ def _block_tree(p: torch.Tensor, c: torch.Tensor):
 
 
 def _carry_scan(s_b: torch.Tensor, c_b: torch.Tensor) -> torch.Tensor:
-    """Carry-propagating loop over per-block partials (leading axis)."""
-    s = torch.zeros_like(s_b[0])
-    c = torch.zeros_like(s_b[0])
-    for sb, cb in zip(s_b, c_b):
-        s, e = two_sum(s, sb)
-        c = c + (e + cb)
-    return s + c
+    """Carry-propagating fold over per-block partials (leading axis), in order.
+
+    The reference's scan is s_k, e_k = two_sum(s_{k-1}, s_b[k]) and
+    c_k = c_{k-1} + (e_k + c_b[k]) from s_0 = c_0 = 0.  Both running sums are
+    strictly left-to-right, which numpy's ``add.accumulate`` is, so they are
+    taken there (with the zero start prepended, which keeps the sign of a zero)
+    and every two_sum error elementwise from them: the bits of the loop at the
+    cost of a few passes.  A loop of torch ops would launch ~8 kernels per
+    block, 65,536 blocks for a 256^3 norm.  The partials, one per block, go
+    through the host.
+    """
+    sb = s_b.detach().cpu().numpy()
+    cb = c_b.detach().cpu().numpy()
+    zero = np.zeros_like(sb[:1])
+    with np.errstate(invalid="ignore", over="ignore"):   # inf and NaN propagate as in torch
+        s = np.add.accumulate(np.concatenate([zero, sb]), axis=0)
+        prev, s = s[:-1], s[1:]
+        v = s - prev                                     # two_sum(prev, sb), elementwise
+        e = (prev - (s - v)) + (sb - v)
+        c = np.add.accumulate(np.concatenate([zero, e + cb]), axis=0)[-1]
+        out = np.asarray(s[-1] + c)
+    return torch.as_tensor(out, device=s_b.device)
 
 
 def _blocked_sum2(p: torch.Tensor, e: torch.Tensor, block: int) -> torch.Tensor:

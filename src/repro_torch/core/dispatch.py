@@ -1,4 +1,4 @@
-"""Emulation dispatch seam, matmul half (``repro.core.dispatch``): plan cache and routing.
+"""Emulation dispatch seam (``repro.core.dispatch``): plan cache and routing.
 
 Every emulated multiplication resolves its configuration and its execution path
 here:
@@ -7,14 +7,17 @@ here:
      ``(k, payload_bits, substrate, r, margin_bits)`` and primes the Garner
      constants when it fills, so repeated calls (every CG iteration) reuse them.
 
-  2. **Router** — ``matmul`` / ``dot`` pick one of two routes: ``kernel``, the
-     hand-written Hopper kernels behind ``repro_torch.kernels.ops`` (``gemm_hilo``
-     for right-hand sides wider than ``GEMV_MAX_B`` columns, ``gemv_hilo``
-     otherwise), with the operands zero-padded to the kernels' tiles; and
-     ``ref``, the unfused ``ozaki2.emulated_matmul``.  Zero padding is exact
-     (padded rows and columns contribute zero residues), and the kernels repeat
-     the reference's arithmetic op for op, so on one device the two routes are
-     bitwise equal.
+  2. **Router** — one entry point per kernel kind picks one of two routes.
+     ``matmul`` / ``dot``: ``kernel``, the hand-written Hopper kernels behind
+     ``repro_torch.kernels.ops`` (``gemm_hilo`` for right-hand sides wider than
+     ``GEMV_MAX_B`` columns, ``gemv_hilo`` otherwise), with the operands
+     zero-padded to the kernels' tiles; and ``ref``, the unfused
+     ``ozaki2.emulated_matmul``.  Zero padding is exact (padded rows and
+     columns contribute zero residues).  ``spmv`` (Blocked-ELL, kind
+     ``spmv_bell``) and ``stencil7`` route between ``ozaki_spmv.spmv_bell`` /
+     ``ozaki_stencil.stencil7`` and their plain versions ``spmv_bell_ref`` /
+     ``stencil7_ref``.  The kernels repeat the reference's arithmetic op for
+     op, so on one device the two routes are bitwise equal.
 
   3. **Mode** — the route follows, in priority order, an explicit ``mode=``
      argument and this thread's ``mode_scope`` / ``set_mode`` override; the
@@ -25,8 +28,8 @@ here:
 
   4. **Tuning table** — ``get_tuning(kind, shape)`` resolves per-(kind,
      shape-class) parameters from ``TUNE_TABLE``: the kernels' padding granules
-     for gemm/gemv and the block size of the compensated reductions
-     (``reduce_block``).
+     for gemm/gemv, the CUDA blocks of spmv_bell and stencil7, and the block
+     size of the compensated reductions (``reduce_block``).
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import torch.nn.functional as F
 from repro_torch.core import ozaki2
 
 MODES = ("auto", "ref", "kernel")
-KINDS = ("gemm", "gemv")
+KINDS = ("gemm", "gemv", "spmv_bell", "stencil7")
 # The compensated reductions take their block size from the tuning table too;
 # they have no kernel, so their route is always "ref".
 TUNE_KINDS = KINDS + ("reduce",)
@@ -50,6 +53,8 @@ TUNE_KINDS = KINDS + ("reduce",)
 AUTO_ROUTE = {
     "gemm": {"cuda": "kernel", "default": "ref"},
     "gemv": {"cuda": "kernel", "default": "ref"},
+    "spmv_bell": {"cuda": "kernel", "default": "ref"},
+    "stencil7": {"cuda": "kernel", "default": "ref"},
     "reduce": {"default": "ref"},
 }
 
@@ -128,10 +133,15 @@ def clear_plan_cache() -> None:
 # "*" is the per-kind wildcard; specific shape classes (``shape_class``)
 # override it.  gemm/gemv entries are the padding granules of the Hopper
 # kernels (csrc/ozaki_gemm.cu: 128 x 128 output tiles, 64-deep K steps;
-# csrc/ozaki_gemv.cu: 8 rows per block, 32-byte K steps).
+# csrc/ozaki_gemv.cu: 8 rows per block, 32-byte K steps).  spmv_bell's br is
+# the rows (threads) per block of csrc/ozaki_spmv.cu; stencil7's block is bz
+# threads along z by by along y (csrc/ozaki_stencil.cu).  Neither changes a bit
+# of the result.
 TUNE_TABLE: Dict[Tuple[str, str], Dict[str, Any]] = {
     ("gemm", "*"): {"bm": 128, "bn": 128, "bk": 64},
     ("gemv", "*"): {"bm": 8, "bk": 32},
+    ("spmv_bell", "*"): {"br": 128},
+    ("stencil7", "*"): {"bz": 64, "by": 4},
     ("reduce", "*"): {"block": 512},
     # Kept from the reference's table (measured there on a CPU): >=64k-element
     # reductions take the shorter 256-lane block.
@@ -262,6 +272,16 @@ def choose_route(plan: Optional[ozaki2.Plan], kind: str = "gemm",
     return table.get(dev_type, table["default"])
 
 
+def _kernel_route(plan: ozaki2.Plan, kind: str, mode: Optional[str],
+                  device: torch.device) -> bool:
+    """Whether this call takes the kernel route; the kernels take CUDA tensors only."""
+    if choose_route(plan, kind, mode, device=device) != "kernel":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"the kernel route needs CUDA tensors, got {device}")
+    return True
+
+
 def _kernel_matmul(a: torch.Tensor, b: torch.Tensor, plan: ozaki2.Plan) -> torch.Tensor:
     from repro_torch.kernels import ops  # deferred: kernels import core, not vice versa
 
@@ -288,10 +308,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
         raise ValueError(f"operands on different devices: {a.device} vs {b.device}")
     if plan is None:
         plan = get_plan(a.shape[1], payload_bits, substrate)
-    route = choose_route(plan, _matmul_kind(b.shape[1]), mode, device=a.device)
-    if route == "kernel":
-        if a.device.type != "cuda":
-            raise ValueError(f"the kernel route needs CUDA tensors, got {a.device}")
+    if _kernel_route(plan, _matmul_kind(b.shape[1]), mode, a.device):
         return _kernel_matmul(a, b, plan)
     return ozaki2.emulated_matmul(a, b, plan, out_dtype=torch.float64)
 
@@ -304,3 +321,48 @@ def dot(x: torch.Tensor, w: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
     out = matmul(x.reshape(-1, x.shape[-1]), w, plan=plan,
                  payload_bits=payload_bits, substrate=substrate, mode=mode)
     return out.reshape(lead + (w.shape[-1],))
+
+
+def spmv(a_val: torch.Tensor, a_col: torch.Tensor, x: torch.Tensor,
+         plan: Optional[ozaki2.Plan] = None, out_rep: str = "f64",
+         br: Optional[int] = None, mode: Optional[str] = None) -> torch.Tensor:
+    """Emulated Blocked-ELL SpMV y = A x through the dispatch seam.
+
+    a_val: (M, bw) padded per-row values, a_col: (M, bw) column indices, x: (N,);
+    returns float64 (M,) on x's device.  The plan resolves from the cache
+    (k = bw, the SpMV margin), the route follows ``choose_route(plan,
+    "spmv_bell", mode)``; ``br`` (rows per CUDA block) comes from the tuning
+    table unless given, and does not change the result.
+    """
+    from repro_torch.kernels import ozaki_spmv as _spmv  # deferred: kernels import core
+
+    if plan is None:
+        plan = get_plan(a_val.shape[1], margin_bits=4)
+    if _kernel_route(plan, "spmv_bell", mode, x.device):
+        if br is None:
+            br = int(get_tuning("spmv_bell", a_val.shape)["br"])
+        return _spmv.spmv_bell(a_val, a_col, x, plan, out_rep=out_rep, br=br)
+    return _spmv.spmv_bell_ref(a_val, a_col, x, plan, out_rep=out_rep)
+
+
+def stencil7(u: torch.Tensor, c: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
+             out_rep: str = "f64", bz: Optional[int] = None,
+             mode: Optional[str] = None) -> torch.Tensor:
+    """Emulated 7-point stencil v = S[c] u through the dispatch seam.
+
+    u: (X, Y, Z) grid, c: (7,) coefficients ordered [centre, -x, +x, -y, +y,
+    -z, +z]; boundary points see a zero halo.  Returns float64 (X, Y, Z) on u's
+    device.  The route follows ``choose_route(plan, "stencil7", mode)``.  The
+    CUDA block (``bz`` threads along z, as the reference's z-slab, by ``by``
+    along y) comes from the tuning table unless ``bz`` is given, and does not
+    change the result.
+    """
+    from repro_torch.kernels import ozaki_stencil as _stencil  # deferred
+
+    if plan is None:
+        plan = get_plan(8, margin_bits=4)
+    if _kernel_route(plan, "stencil7", mode, u.device):
+        tune = get_tuning("stencil7", u.shape)
+        bz = int(tune["bz"]) if bz is None else bz
+        return _stencil.stencil7(u, c, plan, out_rep=out_rep, bz=bz, by=int(tune["by"]))
+    return _stencil.stencil7_ref(u, c, plan, out_rep=out_rep)

@@ -1,4 +1,4 @@
-"""Conjugate Gradient on the emulated kernel stack (``repro.hpc.cg``, dense part).
+"""Conjugate Gradient on the emulated kernel stack (``repro.hpc.cg``).
 
 The recipe for iterative solvers on FP64-starved hardware (paper §7.1(a)):
   * the matvec (the dominant cost) runs through the Ozaki-II GEMV at
@@ -9,8 +9,8 @@ The recipe for iterative solvers on FP64-starved hardware (paper §7.1(a)):
 
 Alongside the compensated recurrence the solver records the same quantities
 recomputed with plain working-precision dots (``history_plain``).
-``cg_solve`` is generic over the matvec; ``cg_solve_dense`` wires in the
-dispatch-routed dense GEMV.
+``cg_solve`` is generic over the matvec; ``cg_solve_bell`` and
+``cg_solve_dense`` wire in the dispatch-routed Blocked-ELL SpMV and dense GEMV.
 """
 
 from __future__ import annotations
@@ -71,6 +71,21 @@ def cg_solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         p = r + (rs_new / rs) * p
         rs = rs_new
     return CGResult(x, it, history[-1], False, history, history_plain)
+
+
+def cg_solve_bell(a_val: torch.Tensor, a_col: torch.Tensor, b: torch.Tensor,
+                  plan: Optional[ozaki2.Plan] = None, out_rep: str = "f64",
+                  mode: Optional[str] = None, **kw) -> CGResult:
+    """CG with the Ozaki-II Blocked-ELL SpMV as the matvec, dispatch-routed
+    (reference route or the ``spmv_bell`` kernel per ``mode`` / ``mode_scope``,
+    ``auto`` by the tensors' device).  The plan resolves once, not per
+    iteration; Phase 1 of ``a_val`` is redone by every matvec."""
+    if plan is None:
+        plan = dispatch.get_plan(a_val.shape[1], margin_bits=4)
+
+    def matvec(x):
+        return dispatch.spmv(a_val, a_col, x, plan=plan, out_rep=out_rep, mode=mode)
+    return cg_solve(matvec, b, **kw)
 
 
 def cg_solve_dense(a: torch.Tensor, b: torch.Tensor,

@@ -24,16 +24,24 @@ import numpy as np
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("ozaki_gemm", "ozaki_gemv")
+SOURCES = ("ozaki_gemm", "ozaki_gemv", "ozaki_stencil", "ozaki_spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_R = 20  # ozaki::kMaxR
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
-# ozaki_gemm_hilo / ozaki_gemv_hilo share one signature:
 # (device, a_hi, a_lo, b_hi, b_lo, d0, d1, d2, out_rep, out, s0, s1, s2, params, stream)
-_SIGNATURE = [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 5 + [_VOID_P]
+_PRODUCT = [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 6
+# The argument types of each source's entry point, ``<name>_hilo``.
+ARGTYPES = {
+    "ozaki_gemm": _PRODUCT,
+    "ozaki_gemv": _PRODUCT,
+    # (device, u_hi, u_lo, c_res, X, Y, Z, bz, by, out_rep, out, params, stream)
+    "ozaki_stencil": [_INT] + [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P] * 3,
+    # (device, a_hi, a_lo, cols, x_hi, x_lo, M, bw, br, out_rep, out, params, stream)
+    "ozaki_spmv": [_INT] + [_VOID_P] * 5 + [_INT] * 4 + [_VOID_P] * 3,
+}
 
 
 class GarnerParams(ctypes.Structure):
@@ -132,6 +140,6 @@ def library(name: str) -> ctypes.CDLL:
     build([name])
     lib = ctypes.CDLL(str(_library_path(name)))
     fn = getattr(lib, f"{name}_hilo")
-    fn.argtypes = _SIGNATURE
+    fn.argtypes = ARGTYPES[name]
     fn.restype = ctypes.c_int
     return lib

@@ -27,7 +27,8 @@ from repro_torch.core.splitting import balanced_mod, residue
 OUT_REPS = ("f64", "digits", "ds")
 
 __all__ = ["OUT_REPS", "balanced_mod", "residue", "residues_int32", "garner_digits",
-           "digits_to_f64", "digits_to_ds", "stack_digits_int8", "unstack_digits"]
+           "digits_to_f64", "digits_to_ds", "stack_digits_int8", "unstack_digits",
+           "represent", "raw_to_f64"]
 
 
 def residues_int32(hi: torch.Tensor, lo: torch.Tensor,
@@ -133,3 +134,27 @@ def stack_digits_int8(digits: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def unstack_digits(d8: torch.Tensor) -> List[torch.Tensor]:
     return [d8[j].to(torch.int32) for j in range(d8.shape[0])]
+
+
+def represent(digits: Sequence[torch.Tensor], plan: ozaki2.Plan,
+              out_rep: str) -> torch.Tensor:
+    """A kernel's raw output from its Garner digits: f64 (...) | ds f32 (2, ...) |
+    digits int8 (r, ...)."""
+    if out_rep == "f64":
+        return digits_to_f64(digits, plan)
+    if out_rep == "ds":
+        return torch.stack(digits_to_ds(digits, plan), dim=0)
+    if out_rep == "digits":
+        return stack_digits_int8(digits)
+    raise ValueError(f"out_rep must be one of {OUT_REPS}, got {out_rep!r}")
+
+
+def raw_to_f64(raw: torch.Tensor, plan: ozaki2.Plan, out_rep: str) -> torch.Tensor:
+    """A kernel's raw output as the float64 of the scaled integer (the epilogue)."""
+    if out_rep == "f64":
+        return raw
+    if out_rep == "ds":
+        return raw[0].to(torch.float64) + raw[1].to(torch.float64)
+    if out_rep == "digits":
+        return digits_to_f64(unstack_digits(raw), plan)
+    raise ValueError(f"out_rep must be one of {OUT_REPS}, got {out_rep!r}")

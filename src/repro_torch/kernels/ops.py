@@ -1,10 +1,12 @@
-"""Kernel-level wrappers around the Hopper kernels (``repro.kernels.ops``, gemm/gemv).
+"""Kernel-level wrappers around the Hopper kernels (``repro.kernels.ops``).
 
 ``ozaki_gemm`` / ``ozaki_gemv`` do the cheap streaming pre/post work around one
 kernel call: Phase-1 scaling, the hi/lo split, padding to block multiples, the
 digit epilogue and the exact unscale.  They ARE the kernel route;
 ``repro_torch.core.dispatch.matmul`` calls them.  The kernel wrappers take the
 plain version for CPU tensors, so these run (bitwise equal) on the CPU too.
+``ozaki_stencil7`` / ``ozaki_spmv_bell`` are routed through the seam
+(``dispatch.stencil7`` / ``dispatch.spmv``) like every emulated multiplication.
 """
 
 from __future__ import annotations
@@ -32,14 +34,7 @@ def _finish(raw: torch.Tensor, plan: ozaki2.Plan, out_rep: str,
             shape: Tuple[int, int]) -> torch.Tensor:
     """Epilogue: raw kernel output -> scaled-integer product as float64."""
     M, N = shape
-    if out_rep == "f64":
-        return raw[:M, :N]
-    if out_rep == "ds":
-        return (raw[0].to(torch.float64) + raw[1].to(torch.float64))[:M, :N]
-    if out_rep == "digits":
-        digits = common.unstack_digits(raw)
-        return common.digits_to_f64(digits, plan)[:M, :N]
-    raise ValueError(out_rep)
+    return common.raw_to_f64(raw, plan, out_rep)[:M, :N]
 
 
 def ozaki_gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
@@ -80,3 +75,25 @@ def ozaki_gemv(a: torch.Tensor, x: torch.Tensor, plan: Optional[ozaki2.Plan] = N
     raw = _gemv.gemv_hilo(a_hi, a_lo, x_hi, x_lo, plan, out_rep=out_rep)
     y = _finish(raw, plan, out_rep, (M, B))
     return splitting.apply_unscale(y, sa, sx)
+
+
+def ozaki_stencil7(u: torch.Tensor, c: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
+                   out_rep: str = "f64", bz: Optional[int] = None,
+                   mode: Optional[str] = None) -> torch.Tensor:
+    """7-point 3-D stencil (paper Alg. 2) at FP64 accuracy, dispatch-routed.
+
+    u: (X, Y, Z) grid, c: (7,) coefficients ordered
+    [centre, -x, +x, -y, +y, -z, +z].  Boundary points use a zero halo.
+    """
+    return dispatch.stencil7(u, c, plan=plan, out_rep=out_rep, bz=bz, mode=mode)
+
+
+def ozaki_spmv_bell(a_val: torch.Tensor, a_col: torch.Tensor, x: torch.Tensor,
+                    plan: Optional[ozaki2.Plan] = None, out_rep: str = "f64",
+                    br: Optional[int] = None, mode: Optional[str] = None) -> torch.Tensor:
+    """Blocked-ELL SpMV y = A x (paper Alg. 3), dispatch-routed.
+
+    a_val: (M, bw) padded per-row values; a_col: (M, bw) column indices (a
+    structural-zero slot must point at a valid column, value 0.0).
+    """
+    return dispatch.spmv(a_val, a_col, x, plan=plan, out_rep=out_rep, br=br, mode=mode)

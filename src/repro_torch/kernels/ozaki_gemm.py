@@ -22,14 +22,14 @@ TILE_M, TILE_N, TILE_K = 128, 128, 64
 OUT_CODES = {"f64": 0, "digits": 1, "ds": 2}
 
 
-def out_shape(out_rep: str, r: int, m: int, n: int):
-    """(shape, dtype) of a kernel output representation."""
+def out_shape(out_rep: str, r: int, *dims: int):
+    """(shape, dtype) of a kernel output representation over outputs of shape dims."""
     if out_rep == "f64":
-        return (m, n), torch.float64
+        return dims, torch.float64
     if out_rep == "ds":
-        return (2, m, n), torch.float32
+        return (2, *dims), torch.float32
     if out_rep == "digits":
-        return (r, m, n), torch.int8
+        return (r, *dims), torch.int8
     raise ValueError(f"out_rep must be one of {common.OUT_REPS}, got {out_rep!r}")
 
 
@@ -76,12 +76,7 @@ def gemm_hilo_ref(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
         br = common.residue(b_hi, b_lo, m).to(torch.float64)
         accs.append(common.balanced_mod(torch.matmul(ar, br).to(torch.int64), m)
                     .to(torch.int32))
-    digits = common.garner_digits(accs, plan)
-    if out_rep == "f64":
-        return common.digits_to_f64(digits, plan)
-    if out_rep == "ds":
-        return torch.stack(common.digits_to_ds(digits, plan), dim=0)
-    return common.stack_digits_int8(digits)
+    return common.represent(common.garner_digits(accs, plan), plan, out_rep)
 
 
 def gemm_hilo(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,

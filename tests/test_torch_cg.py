@@ -61,6 +61,37 @@ def test_blocked_reductions_within_one_ulp_of_scan_references():
     assert float(tcm.neumaier_sum_scan(tx)) == float(jcm.neumaier_sum_scan(jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_carry_scan_equals_the_sequential_loop(dtype, batch):
+    """The vectorised carry fold gives the bits of the plain loop of two_sums,
+    signed zeros, inf and NaN included."""
+    def loop(s_b, c_b):
+        s = torch.zeros_like(s_b[0])
+        c = torch.zeros_like(s_b[0])
+        for sb, cb in zip(s_b, c_b):
+            s, e = tcm.two_sum(s, sb)
+            c = c + (e + cb)
+        return s + c
+
+    for nb in (1, 2, 37, 513):
+        sb = (RNG.standard_normal((nb,) + batch)
+              * np.exp(RNG.uniform(-30, 30, (nb,) + batch))).astype(dtype)
+        cb = (RNG.standard_normal((nb,) + batch) * 1e-17).astype(dtype)
+        cases = [(sb, cb), (np.full_like(sb, -0.0), np.full_like(cb, -0.0))]
+        if nb > 2:
+            special = sb.copy()
+            special[1], special[-1] = np.inf, np.nan
+            cases.append((special, cb))
+        for s_b, c_b in cases:
+            want = loop(torch.from_numpy(s_b), torch.from_numpy(c_b))
+            got = tcm._carry_scan(torch.from_numpy(s_b), torch.from_numpy(c_b))
+            assert got.dtype == want.dtype and got.shape == want.shape
+            g, w = got.numpy(), want.numpy()
+            np.testing.assert_array_equal(g, w)          # NaN equals NaN here
+            np.testing.assert_array_equal(np.signbit(g[~np.isnan(g)]), np.signbit(w[~np.isnan(w)]))
+
+
 def _rbf_spd(n, seed):
     rng = np.random.default_rng(seed)
     pts = rng.uniform(0.0, 1.0, (n, 2))

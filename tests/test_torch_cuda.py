@@ -5,13 +5,16 @@ no JAX, so it also runs where only torch is installed:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import dispatch, splitting  # noqa: E402
-from repro_torch.kernels import ozaki_gemm, ozaki_gemv  # noqa: E402
+from repro_torch.core import dispatch, ozaki2, splitting  # noqa: E402
+from repro_torch.hpc import cg, jacobi  # noqa: E402
+from repro_torch.kernels import ozaki_gemm, ozaki_gemv, ozaki_spmv, ozaki_stencil  # noqa: E402
 
 RNG = np.random.default_rng(17)
 
@@ -73,3 +76,119 @@ def test_cuda_kernel_mode_raises_on_bad_shapes(cuda_device):
         ozaki_gemm.gemm_hilo(h, h, x, x, plan)       # M = 100 does not tile by 128
     with pytest.raises(ValueError):
         ozaki_gemm.gemm_hilo(h[:, :32].t(), h[:, :32].t(), x, x, plan)  # not contiguous
+
+
+def _randn(dev, *shape):
+    return torch.from_numpy(RNG.standard_normal(shape)).to(dev)
+
+
+def _random_bell(dev, m, n, bw, zero_frac=0.2):
+    val = RNG.standard_normal((m, bw)) * np.exp(RNG.uniform(-8, 8, (m, 1)))
+    val[RNG.random((m, bw)) < zero_frac] = 0.0
+    col = RNG.integers(0, n, (m, bw)).astype(np.int32)
+    return (torch.from_numpy(val).to(dev), torch.from_numpy(col).to(dev),
+            torch.from_numpy(RNG.standard_normal(n)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 29, 51), (2, 3, 300), (1, 1, 1), (70, 9, 8)])
+@pytest.mark.parametrize("block", [(64, 4), (32, 8), (7, 3)])
+@pytest.mark.parametrize("out_rep", ["f64", "digits", "ds"])
+def test_cuda_stencil_matches_plain_version(cuda_device, shape, block, out_rep):
+    plan = dispatch.get_plan(8, margin_bits=4)
+    u, c = _randn(cuda_device, *shape), _randn(cuda_device, 7)
+    before = ozaki_stencil.stencil7.launches
+    got = ozaki_stencil.stencil7(u, c, plan, out_rep, bz=block[0], by=block[1])
+    torch.cuda.synchronize()
+    assert ozaki_stencil.stencil7.launches == before + 1
+    torch.testing.assert_close(got, ozaki_stencil.stencil7_ref(u, c, plan, out_rep),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mnbw", [(1000, 1200, 27), (37, 50, 5), (1, 3, 1), (300, 20, 70)])
+@pytest.mark.parametrize("br", [128, 256, 33])
+@pytest.mark.parametrize("out_rep", ["f64", "digits", "ds"])
+def test_cuda_spmv_matches_plain_version(cuda_device, mnbw, br, out_rep):
+    val, col, x = _random_bell(cuda_device, *mnbw)
+    plan = dispatch.get_plan(mnbw[2], margin_bits=4)
+    before = ozaki_spmv.spmv_bell.launches
+    got = ozaki_spmv.spmv_bell(val, col, x, plan, out_rep, br=br)
+    torch.cuda.synchronize()
+    assert ozaki_spmv.spmv_bell.launches == before + 1
+    torch.testing.assert_close(got, ozaki_spmv.spmv_bell_ref(val, col, x, plan, out_rep),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_cuda_spmv_long_rows_reduced_in_the_loop(cuda_device):
+    """Rows of 2^17 + 64 slots whose products mod 256 are all 2^14: the kernel's
+    int32 sums pass 2^31 unless it reduces them inside the loop."""
+    bw = (1 << 17) + 64
+    v = 1.0 + 2.0 ** -45
+    val = torch.full((3, bw), v, dtype=torch.float64, device=cuda_device)
+    col = torch.from_numpy(RNG.integers(0, 5, (3, bw)).astype(np.int32)).to(cuda_device)
+    x = torch.full((5,), v, dtype=torch.float64, device=cuda_device)
+    plan = dispatch.get_plan(bw, margin_bits=4)
+    got = ozaki_spmv.spmv_bell(val, col, x, plan)
+    torch.testing.assert_close(got, ozaki_spmv.spmv_bell_ref(val, col, x, plan), rtol=0, atol=0)
+    assert float(got[0]) == float(Fraction(bw) * Fraction(v) ** 2)   # correctly rounded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_rep", ["f64", "digits", "ds"])
+def test_cuda_stencil_and_spmv_routes_bitwise(cuda_device, out_rep):
+    u, c = _randn(cuda_device, 33, 17, 65), _randn(cuda_device, 7)
+    torch.testing.assert_close(dispatch.stencil7(u, c, out_rep=out_rep),
+                               dispatch.stencil7(u, c, out_rep=out_rep, mode="ref"),
+                               rtol=0, atol=0)
+    val, col, x = _random_bell(cuda_device, 513, 400, 9)
+    torch.testing.assert_close(dispatch.spmv(val, col, x, out_rep=out_rep),
+                               dispatch.spmv(val, col, x, out_rep=out_rep, mode="ref"),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_solvers_routes_bitwise(cuda_device):
+    f = _randn(cuda_device, 12, 10, 9)
+    kj = jacobi.jacobi_solve(f, spacings=[0.5, 1.0, 2.0], omega=2.0 / 3.0, tol=0.0, maxiter=20)
+    rj = jacobi.jacobi_solve(f, spacings=[0.5, 1.0, 2.0], omega=2.0 / 3.0, tol=0.0, maxiter=20,
+                             mode="ref")
+    assert kj.history == rj.history
+    torch.testing.assert_close(kj.u, rj.u, rtol=0, atol=0)
+    n = 10
+    idx = torch.arange(n * n, device=cuda_device)
+    i, j = idx // n, idx % n
+    nbr = torch.stack([idx, idx - n, idx + n, idx - 1, idx + 1], dim=1)
+    ok = torch.stack([i >= 0, i > 0, i < n - 1, j > 0, j < n - 1], dim=1)
+    col = torch.where(ok, nbr, idx[:, None]).to(torch.int32)
+    val = torch.where(ok, torch.tensor([4.0, -1, -1, -1, -1], dtype=torch.float64,
+                                       device=cuda_device), 0.0)
+    b = _randn(cuda_device, n * n)
+    kc = cg.cg_solve_bell(val, col, b, tol=1e-10)
+    rc = cg.cg_solve_bell(val, col, b, tol=1e-10, mode="ref")
+    assert kc.converged and kc.iters == rc.iters and kc.history == rc.history
+
+
+@pytest.mark.cuda
+def test_cuda_stencil_and_spmv_raise_on_bad_input(cuda_device):
+    plan = dispatch.get_plan(8, margin_bits=4)
+    u, c = _randn(cuda_device, 4, 5, 6), _randn(cuda_device, 7)
+    with pytest.raises(ValueError):
+        ozaki_stencil.stencil7(u, c, plan, bz=64, by=8)          # 512 threads a block
+    with pytest.raises(ValueError):
+        ozaki_stencil.stencil7(u[0], c, plan)                     # not 3-D
+    with pytest.raises(TypeError):
+        ozaki_stencil.stencil7(u.to(torch.int32), c, plan)
+    with pytest.raises(ValueError):
+        ozaki_stencil.stencil7(u, c.cpu(), plan)                  # two devices
+    val, col, x = _random_bell(cuda_device, 20, 10, 4)
+    plan = dispatch.get_plan(4, margin_bits=4)
+    with pytest.raises(ValueError):
+        ozaki_spmv.spmv_bell(val, col + 10, x, plan)              # column past N
+    with pytest.raises(ValueError):
+        ozaki_spmv.spmv_bell(val, col, x, plan, br=0)
+    with pytest.raises(TypeError):
+        ozaki_spmv.spmv_bell(val, col.to(torch.float32), x, plan)
+    with pytest.raises(ValueError):                               # not a DEFAULT_MODULI prefix
+        ozaki_spmv.spmv_bell(val, col, x, ozaki2.Plan(moduli=(251, 241, 239), payload_bits=53))

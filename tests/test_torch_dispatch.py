@@ -78,7 +78,23 @@ def test_auto_resolves_by_device_and_kernel_mode_needs_cuda():
     with pytest.raises(ValueError):
         dispatch.matmul(a, b, mode="pallas")
     with pytest.raises(ValueError):
-        dispatch.choose_route(plan, "stencil7")
+        dispatch.choose_route(plan, "attention")
+    for kind in ("spmv_bell", "stencil7"):
+        assert dispatch.choose_route(plan, kind, device=torch.device("cpu")) == "ref"
+        assert dispatch.choose_route(plan, kind, device=torch.device("cuda")) == "kernel"
+        assert dispatch.choose_route(plan, kind, mode="kernel") == "kernel"
+    u, c = torch.zeros((3, 4, 5), dtype=torch.float64), torch.ones(7, dtype=torch.float64)
+    val, col = torch.ones((6, 3), dtype=torch.float64), torch.zeros((6, 3), dtype=torch.int32)
+    x = torch.ones(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        dispatch.stencil7(u, c, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        dispatch.spmv(val, col, x, mode="kernel")
+    with dispatch.mode_scope("kernel"):
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.ozaki_stencil7(u, c)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.ozaki_spmv_bell(val, col, x)
 
 
 @pytest.mark.parametrize("mkn", [(1, 1, 1), (1000, 1537, 777), (1000, 1537, 5),
@@ -132,3 +148,12 @@ def test_plan_cache_and_tuning():
     assert dispatch.reduce_block(40000) == 256
     with pytest.raises(ValueError):
         dispatch.get_tuning("attention", (8,))
+
+
+def test_tuning_of_the_sparse_and_stencil_kinds():
+    assert dispatch.get_tuning("spmv_bell", (1124864, 27)) == {"br": 128}
+    assert dispatch.get_tuning("stencil7", (256, 256, 256)) == {"bz": 64, "by": 4}
+    for kind in ("spmv_bell", "stencil7"):
+        assert kind in dispatch.KINDS and kind in dispatch.AUTO_ROUTE
+        assert dispatch.kernel_supported(dispatch.get_plan(8, margin_bits=4), kind)
+    assert dispatch.get_plan(8, margin_bits=4).r == 15 == dispatch.get_plan(27, margin_bits=4).r

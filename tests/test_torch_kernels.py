@@ -127,3 +127,17 @@ def test_cuda_sources_agree_with_python_side():
     assert p.r == 16 and list(p.moduli[:16]) == list(moduli.DEFAULT_MODULI[:16])
     assert list(p.pref_f64[:16]) == list(gc.pref_f64)
     assert p.pref_mod[1 * 20 + 5] == gc.pref_mod[1, 5]
+
+
+def test_ctypes_argtypes_match_the_c_entry_points():
+    """Every source's ``<name>_hilo`` takes, in order, what ``_build.ARGTYPES``
+    declares: c_int for an int, c_void_p for every pointer and the stream."""
+    assert set(_build.ARGTYPES) == set(_build.SOURCES)
+    for name in _build.SOURCES:
+        text = (pathlib.Path(_build.CSRC) / f"{name}.cu").read_text()
+        sig = re.search(rf'extern "C" int {name}_hilo\(([^)]*)\)', text)
+        assert sig, name
+        params = [p.strip() for p in sig.group(1).split(",")]
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+        assert all(p.startswith(("int ", "const ", "void*", "int8_t*")) for p in params), params
+        assert _build.ARGTYPES[name] == want, name
