@@ -42,6 +42,13 @@ Phases (each prints its results; any failed check makes the script exit 1):
          it converges (||Ax - b||/||b|| <= 1e-9, ||x - 1||inf <= 1e-6), the
          kernel launched iterations + 1 times, and the reference route's first
          50 iterations give a bitwise-equal history.
+  carry  ``carry_fold``, the in-order fold that ends every compensated dot and
+         norm, runs on all three main paths (its count is set to 0 and read
+         with the others': 2 per CG iteration + 2, sweeps + 2 per Jacobi
+         solve).  Its kernel against its plain version (numpy on the host) at
+         the main paths' partials (256^3 norm, HPCG 104^3 dot, n = 8192 dot),
+         batched and in float32 with inf, NaN and signed zeros; times of the
+         fold and of a whole 256^3 norm and 104^3 dot.
 Then one JSON line describing each kernel, and the contract's last line.
 
 Tolerances: every kernel and route comparison is bitwise (0 differing
@@ -64,12 +71,14 @@ N = 8192
 # H100 SXM peaks (NVIDIA data sheet; dense): int8 tensor cores and HBM3.
 INT8_OPS_PER_S = 1979e12
 BYTES_PER_S = 3.35e12
+FP64_OPS_PER_S = 34e12   # FP64 outside the tensor cores
 GRID = 256               # the stencil's and Jacobi's grid, GRID^3 points
 JACOBI_SWEEPS = 50
 HPCG_N = 104             # HPCG's default local grid (hpcg.dat: 104 104 104)
 CG_REF_ITERS = 50        # CG iterations compared across routes
 
 FAILURES = []
+CARRY_LAUNCHES = {}      # carry_fold launches on each main path
 
 
 def check(ok, what):
@@ -134,7 +143,7 @@ def stencil_phases(dev, gen):
 
     from repro_torch.core import dispatch
     from repro_torch.hpc import jacobi
-    from repro_torch.kernels import ozaki_stencil, ref
+    from repro_torch.kernels import carry_fold, ozaki_stencil, ref
 
     # -------------------------------------------------------------- stencil
     plan = dispatch.get_plan(8, margin_bits=4)
@@ -185,7 +194,8 @@ def stencil_phases(dev, gen):
          "plain_ms": time_ms(lambda: ozaki_stencil._contract_ref(u_hi, u_lo, c_res, plan,
                                                                  "f64"), reps=3),
          "library_ms": time_ms(conv, reps=5),
-         "wrapper_ms": time_ms(lambda: ozaki_stencil.stencil7(u, c, plan), reps=5),
+         "wrapper_ms": time_ms(lambda: ozaki_stencil.stencil7(u, c, plan, bz=blocks[0][0],
+                                                              by=blocks[0][1]), reps=5),
          "wrapper_ref_ms": time_ms(lambda: ozaki_stencil.stencil7_ref(u, c, plan), reps=3)}
     nbytes = 16 * u.numel()
     print(f"stencil: {GRID}^3 kernel {t['ms']:.3f} ms (block {blocks[0]}), plain "
@@ -198,14 +208,18 @@ def stencil_phases(dev, gen):
     # --------------------------------------------------------------- jacobi
     f = torch.randn((GRID,) * 3, generator=gen, device=dev, dtype=torch.float64)
     ozaki_stencil.stencil7.launches = 0
+    carry_fold.carry_fold.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res_k = jacobi.jacobi_solve(f, omega=2.0 / 3.0, tol=0.0, maxiter=JACOBI_SWEEPS)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     launches = ozaki_stencil.stencil7.launches
+    CARRY_LAUNCHES["Jacobi"] = carry_fold.carry_fold.launches
     check(launches == res_k.iters + 1 == JACOBI_SWEEPS + 1,
           f"jacobi: stencil7 launched sweeps + 1 = {launches} times")
+    check(CARRY_LAUNCHES["Jacobi"] == JACOBI_SWEEPS + 2,
+          f"jacobi: carry_fold launched sweeps + 2 = {CARRY_LAUNCHES['Jacobi']} times")
     h = res_k.history
     check(all(b < a for a, b in zip(h, h[1:])),
           f"jacobi: residual history decreases ({h[0]:.6e} -> {h[-1]:.6e})")
@@ -254,7 +268,7 @@ def spmv_phases(dev, gen):
 
     from repro_torch.core import dispatch
     from repro_torch.hpc import cg
-    from repro_torch.kernels import ozaki_spmv, ref
+    from repro_torch.kernels import carry_fold, ozaki_spmv, ref
 
     # ----------------------------------------------------------------- spmv
     a_val, a_col = hpcg_operator(HPCG_N, dev)
@@ -307,7 +321,7 @@ def spmv_phases(dev, gen):
     t = {"ms": time_ms(lambda: ozaki_spmv._launch(*ops_hpcg, plan, "f64", br), reps=10),
          "plain_ms": time_ms(lambda: ozaki_spmv._contract_ref(*ops_hpcg, plan, "f64"), reps=3),
          "library_ms": time_ms(lambda: csr @ x, reps=10),
-         "wrapper_ms": time_ms(lambda: ozaki_spmv.spmv_bell(a_val, a_col, x, plan), reps=5),
+         "wrapper_ms": time_ms(lambda: ozaki_spmv.spmv_bell(a_val, a_col, x, plan, br=br), reps=5),
          "wrapper_ref_ms": time_ms(lambda: ozaki_spmv.spmv_bell_ref(a_val, a_col, x, plan),
                                    reps=3)}
     nbytes = 12 * a_val.numel() + 8 * x.numel() + 8 * m
@@ -321,14 +335,19 @@ def spmv_phases(dev, gen):
     # -------------------------------------------------------------- cg_bell
     b = a_val.sum(dim=1)                      # A 1, exact: small integers
     ozaki_spmv.spmv_bell.launches = 0
+    carry_fold.carry_fold.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res_k = cg.cg_solve_bell(a_val, a_col, b, tol=1e-10, maxiter=2000)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     launches = ozaki_spmv.spmv_bell.launches
+    CARRY_LAUNCHES["sparse CG"] = carry_fold.carry_fold.launches
     check(launches == res_k.iters + 1,
           f"cg_bell: spmv_bell launched iterations + 1 = {launches} times")
+    check(CARRY_LAUNCHES["sparse CG"] == 2 * res_k.iters + 2,
+          f"cg_bell: carry_fold launched 2 * iterations + 2 = "
+          f"{CARRY_LAUNCHES['sparse CG']} times")
     rel = float(torch.linalg.vector_norm(ref.spmv_bell_f64(a_val, a_col, res_k.x) - b)
                 / torch.linalg.vector_norm(b))
     xerr = float((res_k.x - 1.0).abs().max())
@@ -355,6 +374,58 @@ def spmv_phases(dev, gen):
             "library_ms": t["library_ms"]}
 
 
+def carry_phase(dev, gen):
+    """The carry fold's phase; returns the carry_fold entry of the kernels line."""
+    import torch
+
+    from repro_torch.core import compensated, dispatch
+    from repro_torch.kernels import carry_fold
+
+    def partials(n, batch=(), dtype=torch.float64):
+        x = torch.randn(batch + (n,), generator=gen, device=dev, dtype=dtype)
+        return compensated._block_partials(*compensated.two_prod(x, x),
+                                           dispatch.reduce_block(n))
+
+    cases = {"256^3 norm": partials(GRID ** 3), "HPCG 104^3 dot": partials(HPCG_N ** 3),
+             f"n = {N} dot": partials(N), "37 x 45 lanes": partials(9000, (37, 45)),
+             "float32, 3 lanes": partials(70001, (3,), torch.float32)}
+    sb, cb = (t.clone() for t in cases["37 x 45 lanes"])
+    sb[1, 0, 0], sb[-1, 1, 1], sb[:, 2, 2], cb[:, 2, 2] = float("inf"), float("nan"), -0.0, -0.0
+    cases["inf, NaN, -0"] = (sb, cb)
+    err = 0.0
+    for name, (sb, cb) in cases.items():
+        got = carry_fold.carry_fold(sb, cb)
+        want = carry_fold.carry_fold_ref(sb, cb)
+        nan = torch.isnan(got) | torch.isnan(want)
+        d = n_diff(got, want) + int(((torch.signbit(got) != torch.signbit(want)) & ~nan).sum())
+        if name == "256^3 norm":
+            err = float((got - want).abs().max())
+        check(d == 0, f"carry: kernel vs plain version at {name} ({tuple(sb.shape)} partials), "
+              f"{d} differing elements or signs")
+    sb, cb = cases["256^3 norm"]
+    t = {"ms": time_ms(lambda: carry_fold.carry_fold(sb, cb), reps=20),
+         "plain_ms": time_ms(lambda: carry_fold.carry_fold_ref(sb, cb), reps=5)}
+    x3 = torch.randn((GRID,) * 3, generator=gen, device=dev, dtype=torch.float64)
+    xh = torch.randn(HPCG_N ** 3, generator=gen, device=dev, dtype=torch.float64)
+    norm_ms = time_ms(lambda: compensated.compensated_norm(x3), reps=10)
+    dot_ms = time_ms(lambda: compensated.compensated_dot(xh, xh), reps=10)
+    nb = sb.shape[0]
+    nbytes = 16 * nb + 8
+    t_bytes, t_ops = byte_bound(nbytes), 8 * nb / FP64_OPS_PER_S * 1e3
+    print(f"carry: {nb} partials (256^3 norm) kernel {t['ms']:.4f} ms, plain (host numpy, "
+          f"with the copy) {t['plain_ms']:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms; whole "
+          f"compensated_norm at {GRID}^3 {norm_ms:.3f} ms, compensated_dot at "
+          f"{HPCG_N}^3 {dot_ms:.3f} ms; launches on the main paths {CARRY_LAUNCHES}",
+          flush=True)
+    del x3, xh, cases
+    return {"name": "carry_fold", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/carry_fold.cu",
+            "replaces": "src/repro/core/compensated.py:111",
+            "launches": sum(CARRY_LAUNCHES.values()), "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -370,7 +441,7 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import dispatch, splitting
     from repro_torch.hpc import cg
-    from repro_torch.kernels import _build, ops, ozaki_gemm, ozaki_gemv
+    from repro_torch.kernels import _build, carry_fold, ops, ozaki_gemm, ozaki_gemv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -409,6 +480,7 @@ def main():
     # ----------------------------------------------------------------- main
     ozaki_gemm.gemm_hilo.launches = 0
     ozaki_gemv.gemv_hilo.launches = 0
+    carry_fold.carry_fold.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     c_main = dispatch.matmul(a, b)
@@ -420,12 +492,15 @@ def main():
     t_cg_k = time.perf_counter() - t0
     launches = {"gemm_hilo": ozaki_gemm.gemm_hilo.launches,
                 "gemv_hilo": ozaki_gemv.gemv_hilo.launches}
+    CARRY_LAUNCHES["dense CG"] = carry_fold.carry_fold.launches
     print(f"main: dispatch.matmul {N}^3 {t_gemm * 1e3:.1f} ms (first call); "
           f"cg_solve_dense n={N}: {res_k.iters} iterations, converged={res_k.converged}; "
           f"launches {launches}", flush=True)
     check(launches["gemm_hilo"] == 1, "main: gemm_hilo launched once for the DGEMM")
     check(launches["gemv_hilo"] == res_k.iters + 1,
           f"main: gemv_hilo launched iterations + 1 = {res_k.iters + 1} times")
+    check(CARRY_LAUNCHES["dense CG"] == 2 * res_k.iters + 2,
+          f"main: carry_fold launched 2 * iterations + 2 = {CARRY_LAUNCHES['dense CG']} times")
 
     # ----------------------------------------------------------------- gemm
     plan = dispatch.get_plan(N)
@@ -540,6 +615,7 @@ def main():
     torch.cuda.empty_cache()
     stencil_kernel = stencil_phases(dev, gen)
     spmv_kernel = spmv_phases(dev, gen)
+    carry_kernel = carry_phase(dev, gen)
 
     # -------------------------------------------------------------- summary
     g_bound, g_by = bound(N, N, N, plan.r)
@@ -557,7 +633,7 @@ def main():
          "launches": launches["gemv_hilo"], "max_abs_err": gemv[1]["err"],
          "ms": gemv[1]["ms"], "plain_ms": gemv[1]["plain_ms"], "bound_ms": v_bound,
          "bound_by": v_by, "library_ms": gemv[1]["library_ms"]},
-        stencil_kernel, spmv_kernel,
+        stencil_kernel, spmv_kernel, carry_kernel,
     ]
     print("kernels: " + ", ".join(f"{k['name']} {k['launches']} launches" for k in kernels)
           + " on the main paths", flush=True)

@@ -11,8 +11,8 @@ Blocked EFT execution, as in the reference:
      steps over all blocks at once) gives per-block partials ``(s_b, c_b)``;
   3. a carry-propagating fold over the ``nblocks`` partials, in order, folds
      them with ``two_sum`` (the reference's ``lax.scan``), feeding the carries
-     into the compensation stream (``_carry_scan``: two sequential running
-     sums on the host and elementwise error terms);
+     into the compensation stream (``kernels/carry_fold.py``: a CUDA kernel
+     for CUDA tensors, numpy running sums on the host for CPU tensors);
   4. the result is ``s + c``.
 Every ``two_sum``/``two_prod`` is exact and only the compensation stream is
 summed in working precision, which gives the Ogita-Rump Sum2/Dot2 bound for any
@@ -28,7 +28,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -70,39 +69,22 @@ def _block_tree(p: torch.Tensor, c: torch.Tensor):
     return p[..., 0], c[..., 0]
 
 
-def _carry_scan(s_b: torch.Tensor, c_b: torch.Tensor) -> torch.Tensor:
-    """Carry-propagating fold over per-block partials (leading axis), in order.
-
-    The reference's scan is s_k, e_k = two_sum(s_{k-1}, s_b[k]) and
-    c_k = c_{k-1} + (e_k + c_b[k]) from s_0 = c_0 = 0.  Both running sums are
-    strictly left-to-right, which numpy's ``add.accumulate`` is, so they are
-    taken there (with the zero start prepended, which keeps the sign of a zero)
-    and every two_sum error elementwise from them: the bits of the loop at the
-    cost of a few passes.  A loop of torch ops would launch ~8 kernels per
-    block, 65,536 blocks for a 256^3 norm.  The partials, one per block, go
-    through the host.
-    """
-    sb = s_b.detach().cpu().numpy()
-    cb = c_b.detach().cpu().numpy()
-    zero = np.zeros_like(sb[:1])
-    with np.errstate(invalid="ignore", over="ignore"):   # inf and NaN propagate as in torch
-        s = np.add.accumulate(np.concatenate([zero, sb]), axis=0)
-        prev, s = s[:-1], s[1:]
-        v = s - prev                                     # two_sum(prev, sb), elementwise
-        e = (prev - (s - v)) + (sb - v)
-        c = np.add.accumulate(np.concatenate([zero, e + cb]), axis=0)[-1]
-        out = np.asarray(s[-1] + c)
-    return torch.as_tensor(out, device=s_b.device)
-
-
-def _blocked_sum2(p: torch.Tensor, e: torch.Tensor, block: int) -> torch.Tensor:
-    """Compensated sum of p (+ pre-existing error stream e) along the last axis."""
+def _block_partials(p: torch.Tensor, e: torch.Tensor, block: int):
+    """Per-block partials (s_b, c_b) of p (+ pre-existing error stream e) along
+    the last axis, with the block axis leading (the carry fold's input)."""
     p = _pad_to_blocks(p, block)
     e = _pad_to_blocks(e, block)
     nb = p.shape[-1] // block
     shape = tuple(p.shape[:-1]) + (nb, block)
     s_b, c_b = _block_tree(p.reshape(shape), e.reshape(shape))
-    return _carry_scan(torch.movedim(s_b, -1, 0), torch.movedim(c_b, -1, 0))
+    return torch.movedim(s_b, -1, 0), torch.movedim(c_b, -1, 0)
+
+
+def _blocked_sum2(p: torch.Tensor, e: torch.Tensor, block: int) -> torch.Tensor:
+    """Compensated sum of p (+ pre-existing error stream e) along the last axis."""
+    from repro_torch.kernels import carry_fold  # deferred: the kernels import the core
+
+    return carry_fold.carry_fold(*_block_partials(p, e, block))
 
 
 def _normalize_axis(axis: int, ndim: int) -> int:

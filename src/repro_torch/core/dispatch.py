@@ -46,8 +46,10 @@ from repro_torch.core import ozaki2
 
 MODES = ("auto", "ref", "kernel")
 KINDS = ("gemm", "gemv", "spmv_bell", "stencil7")
-# The compensated reductions take their block size from the tuning table too;
-# they have no kernel, so their route is always "ref".
+# The compensated reductions take their block size from the tuning table too.
+# They have no Ozaki route, so "reduce" always resolves to "ref": their tree
+# runs as torch ops and their carry fold (kernels/carry_fold.py) follows the
+# partials' device, the kernel on the card, whatever the mode.
 TUNE_KINDS = KINDS + ("reduce",)
 
 AUTO_ROUTE = {
@@ -248,7 +250,8 @@ def _validate_kind(kind: str) -> str:
 
 
 def kernel_supported(plan: Optional[ozaki2.Plan], kind: str = "gemm") -> bool:
-    """The kernels implement the int8 residue substrate; ``reduce`` has none."""
+    """The Ozaki kernels implement the int8 residue substrate; ``reduce`` has no
+    route to choose (its carry fold follows the device)."""
     _validate_kind(kind)
     return kind != "reduce" and plan is not None and plan.substrate == "int8"
 

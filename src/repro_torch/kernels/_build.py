@@ -24,23 +24,26 @@ import numpy as np
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("ozaki_gemm", "ozaki_gemv", "ozaki_stencil", "ozaki_spmv")
+SOURCES = ("ozaki_gemm", "ozaki_gemv", "ozaki_stencil", "ozaki_spmv", "carry_fold")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_R = 20  # ozaki::kMaxR
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
+_INT64 = ctypes.c_int64
 # (device, a_hi, a_lo, b_hi, b_lo, d0, d1, d2, out_rep, out, s0, s1, s2, params, stream)
 _PRODUCT = [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 6
-# The argument types of each source's entry point, ``<name>_hilo``.
-ARGTYPES = {
-    "ozaki_gemm": _PRODUCT,
-    "ozaki_gemv": _PRODUCT,
+# Each source's C entry point: its name and argument types.
+ENTRY_POINTS = {
+    "ozaki_gemm": ("ozaki_gemm_hilo", _PRODUCT),
+    "ozaki_gemv": ("ozaki_gemv_hilo", _PRODUCT),
     # (device, u_hi, u_lo, c_res, X, Y, Z, bz, by, out_rep, out, params, stream)
-    "ozaki_stencil": [_INT] + [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P] * 3,
+    "ozaki_stencil": ("ozaki_stencil_hilo", [_INT] + [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P] * 3),
     # (device, a_hi, a_lo, cols, x_hi, x_lo, M, bw, br, out_rep, out, params, stream)
-    "ozaki_spmv": [_INT] + [_VOID_P] * 5 + [_INT] * 4 + [_VOID_P] * 3,
+    "ozaki_spmv": ("ozaki_spmv_hilo", [_INT] + [_VOID_P] * 5 + [_INT] * 4 + [_VOID_P] * 3),
+    # (device, dtype_bytes, s_b, c_b, nb, lanes, out, stream)
+    "carry_fold": ("carry_fold", [_INT] * 2 + [_VOID_P] * 2 + [_INT64] * 2 + [_VOID_P] * 2),
 }
 
 
@@ -139,7 +142,8 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     build([name])
     lib = ctypes.CDLL(str(_library_path(name)))
-    fn = getattr(lib, f"{name}_hilo")
-    fn.argtypes = ARGTYPES[name]
+    entry, argtypes = ENTRY_POINTS[name]
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return lib

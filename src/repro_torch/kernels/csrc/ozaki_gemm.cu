@@ -12,7 +12,7 @@
 // Design.  The TPU keeps r accumulator tiles of 128 x 128 int32 in VMEM (1 MiB at
 // r = 16); an SM has 256 KB of registers, and blocks run in no order, so the K
 // axis becomes a loop inside a block and the moduli become a grid axis:
-//   1. residues_rows / residues_cols (ozaki_common.cuh) turn the operands into
+//   1. residues_rows / residues_cols (ozaki_product.cuh) turn the operands into
 //      int8 residue planes once, A as (r, M, K) and B transposed as (r, N, K).
 //      Recomputing them inside the product loop would cost r * ~20 integer
 //      operations per element for every output tile that reads it, more than
@@ -30,7 +30,7 @@
 //      reduction gives.
 //   3. garner_epilogue turns the (r, M, N) int8 residues into f64, ds or digits.
 // A simple kernel first: no shared-memory staging, no wgmma, no TMA.
-#include "ozaki_common.cuh"
+#include "ozaki_product.cuh"
 
 namespace ozaki {
 

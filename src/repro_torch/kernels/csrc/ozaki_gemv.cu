@@ -12,7 +12,7 @@
 // Design.  An MMA is at least 8 columns wide, so at B = 1 it would waste 7/8 of
 // its work; the product runs on the CUDA cores with __dp4a (four int8 products
 // and an int32 add per instruction):
-//   1. residues_rows / residues_cols (ozaki_common.cuh) make the int8 residue
+//   1. residues_rows / residues_cols (ozaki_product.cuh) make the int8 residue
 //      planes of A, (r, M, N), and of X transposed, (r, B, N).  The residues cost
 //      r * ~20 integer operations per element of A, which, not the bytes, is what
 //      limits this first version.
@@ -23,7 +23,7 @@
 //      and reduces once more.  The balanced residue is unique, so the bits are
 //      those of the TPU kernel's per-step reduction.
 //   3. garner_epilogue turns the (r, M, B) residues into f64, ds or digits.
-#include "ozaki_common.cuh"
+#include "ozaki_product.cuh"
 
 namespace ozaki {
 

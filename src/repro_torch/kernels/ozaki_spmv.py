@@ -90,8 +90,10 @@ def _launch(av_hi: torch.Tensor, av_lo: torch.Tensor, cols: torch.Tensor,
     if not 1 <= br <= MAX_BLOCK_ROWS:
         raise ValueError(f"spmv_bell: row block {br} outside 1..{MAX_BLOCK_ROWS}")
     n = x_hi.shape[0]
-    if cols.numel() and (int(cols.min()) < 0 or int(cols.max()) >= n):
-        raise ValueError(f"spmv_bell: a column index lies outside 0..{n - 1}")
+    if cols.numel():
+        lo, hi = torch.aminmax(cols)               # one pass, one host sync
+        if bool((lo < 0) | (hi >= n)):
+            raise ValueError(f"spmv_bell: a column index lies outside 0..{n - 1}")
     shape, dtype = out_shape(out_rep, plan.r, M)
     dev = av_hi.device
     out = torch.empty(shape, dtype=dtype, device=dev)
@@ -107,11 +109,12 @@ def _launch(av_hi: torch.Tensor, av_lo: torch.Tensor, cols: torch.Tensor,
 
 
 def spmv_bell(a_val: torch.Tensor, a_col: torch.Tensor, x: torch.Tensor,
-              plan: ozaki2.Plan, out_rep: str = "f64", br: int = 128) -> torch.Tensor:
+              plan: ozaki2.Plan, out_rep: str = "f64", *, br: int) -> torch.Tensor:
     """Emulated FP64-accurate Blocked-ELL SpMV y = A x; float64 (M,) on x's device.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel with
-    blocks of br rows, or raise.  The result does not depend on br.
+    blocks of br rows (``dispatch.spmv`` takes br from the tuning table), or
+    raise.  The result does not depend on br.
     """
     _check_operands(a_val, a_col, x)
     if x.device.type == "cpu":

@@ -123,13 +123,14 @@ def _launch(u_hi: torch.Tensor, u_lo: torch.Tensor, c_res: torch.Tensor,
 
 
 def stencil7(u: torch.Tensor, c: torch.Tensor, plan: ozaki2.Plan, out_rep: str = "f64",
-             bz: int = 64, by: int = 4) -> torch.Tensor:
+             *, bz: int, by: int) -> torch.Tensor:
     """Emulated FP64-accurate 7-point stencil; float64 (X, Y, Z) on u's device.
 
     u (X, Y, Z), c (7,) ordered [centre, -x, +x, -y, +y, -z, +z], zero halo.
     CPU tensors take the plain version; CUDA tensors launch the kernel with
-    blocks of bz (along z) x by (along y) threads, or raise.  The result does
-    not depend on the block.
+    blocks of bz (along z) x by (along y) threads (``dispatch.stencil7`` takes
+    them from the tuning table), or raise.  The result does not depend on the
+    block.
     """
     if u.ndim != 3 or tuple(c.shape) != (7,):
         raise ValueError(f"stencil7 takes u (X, Y, Z) and c (7,), got {tuple(u.shape)} "

@@ -11,6 +11,7 @@ from repro.core import compensated as jcm  # noqa: E402
 from repro.hpc import cg as jcg, spmv_formats  # noqa: E402
 from repro_torch.core import compensated as tcm  # noqa: E402
 from repro_torch.hpc import cg as tcg  # noqa: E402
+from repro_torch.kernels import carry_fold  # noqa: E402
 
 RNG = np.random.default_rng(3)
 
@@ -85,11 +86,29 @@ def test_carry_scan_equals_the_sequential_loop(dtype, batch):
             cases.append((special, cb))
         for s_b, c_b in cases:
             want = loop(torch.from_numpy(s_b), torch.from_numpy(c_b))
-            got = tcm._carry_scan(torch.from_numpy(s_b), torch.from_numpy(c_b))
+            got = carry_fold.carry_fold(torch.from_numpy(s_b), torch.from_numpy(c_b))
             assert got.dtype == want.dtype and got.shape == want.shape
             g, w = got.numpy(), want.numpy()
             np.testing.assert_array_equal(g, w)          # NaN equals NaN here
             np.testing.assert_array_equal(np.signbit(g[~np.isnan(g)]), np.signbit(w[~np.isnan(w)]))
+
+
+def test_carry_fold_wrapper_on_the_host():
+    """On CPU tensors the wrapper is its plain version and launches nothing; no
+    blocks fold to +0; mismatched partials raise."""
+    sb = torch.from_numpy(RNG.standard_normal((9, 2, 3)))
+    cb = torch.from_numpy(RNG.standard_normal((9, 2, 3)) * 1e-17)
+    before = carry_fold.carry_fold.launches
+    got = carry_fold.carry_fold(sb, cb)
+    assert carry_fold.carry_fold.launches == before and tuple(got.shape) == (2, 3)
+    np.testing.assert_array_equal(got.numpy(), carry_fold.carry_fold_ref(sb, cb).numpy())
+    empty = carry_fold.carry_fold(sb[:0], cb[:0])
+    assert tuple(empty.shape) == (2, 3) and not np.signbit(empty.numpy()).any()
+    assert not empty.numpy().any()
+    with pytest.raises(ValueError):
+        carry_fold.carry_fold(sb, cb[:, :1])
+    with pytest.raises(ValueError):
+        carry_fold.carry_fold(sb, cb.to(torch.float32))
 
 
 def _rbf_spd(n, seed):

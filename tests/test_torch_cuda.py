@@ -12,9 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import dispatch, ozaki2, splitting  # noqa: E402
+from repro_torch.core import compensated, dispatch, ozaki2, splitting  # noqa: E402
 from repro_torch.hpc import cg, jacobi  # noqa: E402
-from repro_torch.kernels import ozaki_gemm, ozaki_gemv, ozaki_spmv, ozaki_stencil  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    carry_fold, ozaki_gemm, ozaki_gemv, ozaki_spmv, ozaki_stencil)
 
 RNG = np.random.default_rng(17)
 
@@ -130,7 +131,7 @@ def test_cuda_spmv_long_rows_reduced_in_the_loop(cuda_device):
     col = torch.from_numpy(RNG.integers(0, 5, (3, bw)).astype(np.int32)).to(cuda_device)
     x = torch.full((5,), v, dtype=torch.float64, device=cuda_device)
     plan = dispatch.get_plan(bw, margin_bits=4)
-    got = ozaki_spmv.spmv_bell(val, col, x, plan)
+    got = ozaki_spmv.spmv_bell(val, col, x, plan, **dispatch.get_tuning("spmv_bell", val.shape))
     torch.testing.assert_close(got, ozaki_spmv.spmv_bell_ref(val, col, x, plan), rtol=0, atol=0)
     assert float(got[0]) == float(Fraction(bw) * Fraction(v) ** 2)   # correctly rounded
 
@@ -177,18 +178,75 @@ def test_cuda_stencil_and_spmv_raise_on_bad_input(cuda_device):
     with pytest.raises(ValueError):
         ozaki_stencil.stencil7(u, c, plan, bz=64, by=8)          # 512 threads a block
     with pytest.raises(ValueError):
-        ozaki_stencil.stencil7(u[0], c, plan)                     # not 3-D
+        ozaki_stencil.stencil7(u[0], c, plan, bz=64, by=4)        # not 3-D
     with pytest.raises(TypeError):
-        ozaki_stencil.stencil7(u.to(torch.int32), c, plan)
+        ozaki_stencil.stencil7(u.to(torch.int32), c, plan, bz=64, by=4)
     with pytest.raises(ValueError):
-        ozaki_stencil.stencil7(u, c.cpu(), plan)                  # two devices
+        ozaki_stencil.stencil7(u, c.cpu(), plan, bz=64, by=4)     # two devices
     val, col, x = _random_bell(cuda_device, 20, 10, 4)
     plan = dispatch.get_plan(4, margin_bits=4)
     with pytest.raises(ValueError):
-        ozaki_spmv.spmv_bell(val, col + 10, x, plan)              # column past N
+        ozaki_spmv.spmv_bell(val, col + 10, x, plan, br=128)      # column past N
     with pytest.raises(ValueError):
         ozaki_spmv.spmv_bell(val, col, x, plan, br=0)
     with pytest.raises(TypeError):
-        ozaki_spmv.spmv_bell(val, col.to(torch.float32), x, plan)
+        ozaki_spmv.spmv_bell(val, col.to(torch.float32), x, plan, br=128)
     with pytest.raises(ValueError):                               # not a DEFAULT_MODULI prefix
-        ozaki_spmv.spmv_bell(val, col, x, ozaki2.Plan(moduli=(251, 241, 239), payload_bits=53))
+        ozaki_spmv.spmv_bell(val, col, x, ozaki2.Plan(moduli=(251, 241, 239), payload_bits=53),
+                             br=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(32768,), (2197,), (16,), (1,), (0,), (37, 45), (3, 1),
+                                   (1000, 33), (5, 2, 3)])
+def test_cuda_carry_fold_matches_plain_version(cuda_device, dtype, shape):
+    """The fold on the card against its plain version on the host: wide
+    exponents, signed zeros, inf and NaN, one lane and many."""
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    span = 200 if dtype == torch.float64 else 30
+    sb = (RNG.standard_normal(shape) * np.exp(RNG.uniform(-span, span, shape))).astype(npd)
+    cb = (RNG.standard_normal(shape) * 1e-17).astype(npd)
+    cases = [(sb, cb), (np.full_like(sb, -0.0), np.full_like(cb, -0.0))]
+    if shape[0] > 2:
+        special = sb.copy()
+        special[1], special[-1] = np.inf, np.nan
+        cases.append((special, cb))
+    for s_b, c_b in cases:
+        s_t, c_t = torch.from_numpy(s_b), torch.from_numpy(c_b)
+        want = carry_fold.carry_fold_ref(s_t, c_t)
+        before = carry_fold.carry_fold.launches
+        got = carry_fold.carry_fold(s_t.to(cuda_device), c_t.to(cuda_device))
+        assert carry_fold.carry_fold.launches == before + 1
+        assert got.dtype == dtype and tuple(got.shape) == shape[1:]
+        g, w = got.cpu().numpy(), want.numpy()
+        np.testing.assert_array_equal(g, w)                      # NaN equals NaN here
+        np.testing.assert_array_equal(np.signbit(g[~np.isnan(g)]), np.signbit(w[~np.isnan(w)]))
+
+
+@pytest.mark.cuda
+def test_cuda_compensated_reductions_equal_the_host(cuda_device):
+    """compensated_dot and compensated_norm on the card (the tree as torch ops,
+    the fold as the kernel) give the host's bits, one fold launch each."""
+    x = RNG.standard_normal((70001,)) * np.exp(RNG.uniform(-20, 20, 70001))
+    y = RNG.standard_normal((70001,))
+    xb = RNG.standard_normal((40, 600))
+    for fn, args in ((compensated.compensated_dot, (x, y)), (compensated.compensated_norm, (x,)),
+                     (lambda a: compensated.compensated_norm(a, axis=1), (xb,)),
+                     (lambda a, b: compensated.compensated_dot(a, b, axis=0), (xb, xb))):
+        host = fn(*(torch.from_numpy(a) for a in args))
+        before = carry_fold.carry_fold.launches
+        card = fn(*(torch.from_numpy(a).to(cuda_device) for a in args))
+        assert carry_fold.carry_fold.launches == before + 1
+        np.testing.assert_array_equal(card.cpu().numpy(), host.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_carry_fold_raises_on_bad_input(cuda_device):
+    s = torch.zeros((4, 3), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        carry_fold.carry_fold(s.to(torch.float16), s.to(torch.float16))
+    with pytest.raises(ValueError):
+        carry_fold.carry_fold(s, s[:, :2])
+    with pytest.raises(ValueError):
+        carry_fold.carry_fold(s, s.cpu())

@@ -130,14 +130,18 @@ def test_cuda_sources_agree_with_python_side():
 
 
 def test_ctypes_argtypes_match_the_c_entry_points():
-    """Every source's ``<name>_hilo`` takes, in order, what ``_build.ARGTYPES``
-    declares: c_int for an int, c_void_p for every pointer and the stream."""
-    assert set(_build.ARGTYPES) == set(_build.SOURCES)
+    """Every source's entry point takes, in order, what ``_build.ENTRY_POINTS``
+    declares: c_int for an int, c_int64 for an int64_t, c_void_p for every
+    pointer and the stream."""
+    assert set(_build.ENTRY_POINTS) == set(_build.SOURCES)
     for name in _build.SOURCES:
+        entry, argtypes = _build.ENTRY_POINTS[name]
         text = (pathlib.Path(_build.CSRC) / f"{name}.cu").read_text()
-        sig = re.search(rf'extern "C" int {name}_hilo\(([^)]*)\)', text)
+        sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
         assert sig, name
         params = [p.strip() for p in sig.group(1).split(",")]
-        want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-        assert all(p.startswith(("int ", "const ", "void*", "int8_t*")) for p in params), params
-        assert _build.ARGTYPES[name] == want, name
+        want = [ctypes.c_void_p if "*" in p else
+                ctypes.c_int64 if p.startswith("int64_t ") else ctypes.c_int for p in params]
+        assert all(p.startswith(("int ", "int64_t ", "const ", "void*", "int8_t*"))
+                   for p in params), params
+        assert argtypes == want, name

@@ -78,7 +78,8 @@ def test_spmv_bell_ref_bitwise(mnbw, out_rep):
     assert_matches(got.numpy(), want, out_rep, val, col, x)
     # the kernel wrapper takes the plain version for CPU tensors, and launches nothing
     before = ozaki_spmv.spmv_bell.launches
-    np.testing.assert_array_equal(ozaki_spmv.spmv_bell(*_t(val, col, x), tp, out_rep).numpy(),
+    np.testing.assert_array_equal(ozaki_spmv.spmv_bell(*_t(val, col, x), tp, out_rep,
+                                                       br=128).numpy(),
                                   got.numpy())
     assert ozaki_spmv.spmv_bell.launches == before
 
@@ -166,11 +167,11 @@ def test_wrappers_validate():
     val, col, x = _t(*_random_bell(8, 10, 3))
     plan = dispatch.get_plan(3, margin_bits=4)
     with pytest.raises(ValueError):
-        ozaki_spmv.spmv_bell(val, col[:, :2], x, plan)
+        ozaki_spmv.spmv_bell(val, col[:, :2], x, plan, br=128)
     with pytest.raises(TypeError):
-        ozaki_spmv.spmv_bell(val, col.to(torch.float64), x, plan)
+        ozaki_spmv.spmv_bell(val, col.to(torch.float64), x, plan, br=128)
     with pytest.raises(ValueError):
-        ozaki_spmv.spmv_bell(val, col, x, plan, out_rep="f32")
+        ozaki_spmv.spmv_bell(val, col, x, plan, out_rep="f32", br=128)
     with pytest.raises(ValueError):
         ozaki_spmv.spmv_bell_ref(val, col, x[:, None], plan)
 

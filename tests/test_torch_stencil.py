@@ -83,7 +83,8 @@ def test_stencil7_ref_bitwise(shape, coeffs, out_rep):
     # the kernel wrapper takes the plain version for CPU tensors, and launches nothing
     before = ozaki_stencil.stencil7.launches
     np.testing.assert_array_equal(
-        ozaki_stencil.stencil7(torch.from_numpy(u), torch.from_numpy(c), tp, out_rep).numpy(),
+        ozaki_stencil.stencil7(torch.from_numpy(u), torch.from_numpy(c), tp, out_rep,
+                               bz=64, by=4).numpy(),
         got.numpy())
     assert ozaki_stencil.stencil7.launches == before
 
