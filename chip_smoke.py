@@ -49,6 +49,29 @@ Phases (each prints its results; any failed check makes the script exit 1):
          the main paths' partials (256^3 norm, HPCG 104^3 dot, n = 8192 dot),
          batched and in float32 with inf, NaN and signed zeros; times of the
          fold and of a whole 256^3 norm and 104^3 dot.
+  attention ``dispatch.attention`` and ``attention_fused`` at yi-6b's head_dim
+         128 (r = 15) in six cases: causal prefill 32 x 512 x 512 (the serve
+         phase's per-layer shape), ragged 6 x 37 x 301 with D = 80, softcap 30,
+         a sliding window of 64, decode S = 1 against a ring mask, and q rows
+         and v columns at ~1e-300.  In each: the kernel route against the
+         reference route (bitwise), the kernel against its plain version at
+         two bq (bitwise; the result must not depend on bq), and against a
+         native-FP64 softmax attention (<= 1e-12 * max|v| per column).  Times of
+         the kernel, its plain version, ``F.scaled_dot_product_attention`` f64
+         and the bound, at prefill and at decode.
+  serve  yi-6b at its published widths and all 32 layers (d_model 4096, 32
+         heads over 4 KV heads, head_dim 128, d_ff 11008, vocab 64000), policy
+         ozaki2_int8, compute float32, random weights from a seeded generator
+         on the card.  The main path, with every launch count set to 0 just
+         before and read just after: ``ContinuousBatcher`` serves 3 requests of
+         16 seeded prompt tokens and 8 new tokens through 2 slots, then one
+         forward pass over 512 tokens, all on the ``auto`` route;
+         ``attention_fused`` launched layers x calls and ``gemm_hilo``
+         (7 x layers + 1) x calls times.  Then the reference route (bitwise
+         forward logits and first 4 decode steps, at all 32 layers), and the
+         emulated logits against the fp64 policy's (rtol 1e-3, atol 1e-4).
+         Prints decode ms/step, tokens/s, ``dispatch.attention``'s share of a
+         decode step (CUDA events) and peak memory.
 Then one JSON line describing each kernel, and the contract's last line.
 
 Tolerances: every kernel and route comparison is bitwise (0 differing
@@ -77,8 +100,11 @@ JACOBI_SWEEPS = 50
 HPCG_N = 104             # HPCG's default local grid (hpcg.dat: 104 104 104)
 CG_REF_ITERS = 50        # CG iterations compared across routes
 
+ATTN_D = 128             # yi-6b's head_dim
+
 FAILURES = []
 CARRY_LAUNCHES = {}      # carry_fold launches on each main path
+GEMM_LAUNCHES = {}       # gemm_hilo launches on each main path
 
 
 def check(ok, what):
@@ -426,6 +452,287 @@ def carry_phase(dev, gen):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
 
 
+def native_attention(q, k, v, mask, softcap):
+    """Softmax attention with materialised scores in native FP64 (the oracle)."""
+    import torch
+
+    s = q @ k.transpose(-1, -2) / (q.shape[-1] ** 0.5)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    return torch.softmax(torch.where(mask != 0, s, -1e30), dim=-1) @ v
+
+
+def attention_phase(dev, gen):
+    """The attention phase; returns the attention_fused entry of the kernels line
+    (launches filled in by the serve phase)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import ozaki_attention as oa
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+
+    def tril(b, s, t):
+        return torch.tril(torch.ones((s, t), dtype=torch.int8, device=dev)).expand(b, s, t)
+
+    i = torch.arange(512, device=dev)
+    window = ((i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < 64)).to(torch.int8)
+    slots, pos = torch.arange(128, device=dev), 76          # a ring of 128 at position 76
+    ring = (slots <= pos).to(torch.int8)[None, None].expand(64, 1, 128)
+    tiny = [randn(4, 64, ATTN_D), randn(4, 64, ATTN_D), randn(4, 64, ATTN_D)]
+    tiny[0][:, 3] *= 1e-300
+    tiny[2][:, :, 5] *= 1e-300
+    cases = [
+        ("causal prefill 32 x 512 x 512", [randn(32, 512, ATTN_D) for _ in range(3)],
+         tril(32, 512, 512), 0.0),
+        ("ragged 6 x 37 x 301, D 80", [randn(6, 37, 80), randn(6, 301, 80), randn(6, 301, 80)],
+         (torch.rand((6, 37, 301), generator=gen, device=dev) < 0.8).to(torch.int8), 0.0),
+        ("softcap 30, 8 x 256 x 256", [randn(8, 256, ATTN_D) for _ in range(3)],
+         tril(8, 256, 256), 30.0),
+        ("window 64, 8 x 512 x 512", [randn(8, 512, ATTN_D) for _ in range(3)],
+         window.expand(8, 512, 512), 0.0),
+        ("decode 64 x 1 x 128, ring mask", [randn(64, 1, ATTN_D), randn(64, 128, ATTN_D),
+                                            randn(64, 128, ATTN_D)], ring, 0.0),
+        ("q rows and v columns at 1e-300", tiny, torch.ones((4, 64, 64), dtype=torch.int8,
+                                                            device=dev), 0.0),
+    ]
+    timed = {}
+    err_kp = 0.0
+    for name, (q, k, v), mask, softcap in cases:
+        B, S, D = q.shape
+        T = k.shape[1]
+        tune = dispatch.get_tuning("attention", (B, S, D, T))
+        bq = min(int(tune["bq"]), -(-S // 8) * 8)
+        bkv = min(int(tune["bkv"]), -(-T // 8) * 8)
+        pq, pp = dispatch.get_plan(D), dispatch.get_plan(bkv)
+        check(pq.r == pp.r == 15, f"attention: {name}, plans r = {pq.r}, {pp.r}")
+        y_k = dispatch.attention(q, k, v, mask=mask, softcap=softcap)
+        y_r = dispatch.attention(q, k, v, mask=mask, softcap=softcap, mode="ref")
+        check(n_diff(y_k, y_r) == 0, f"attention: {name}, kernel vs reference route, "
+              f"{n_diff(y_k, y_r)} of {y_k.numel()} elements differ")
+        plain = oa.attention_ref(q, k, v, mask, pq, pp, softcap, bkv)
+        for b in sorted({bq, 8}, reverse=True):
+            got = oa.attention_fused(q, k, v, mask, pq, pp, softcap, bq=b, bkv=bkv)
+            d = n_diff(got, plain)
+            if name.startswith("causal"):
+                err_kp = max(err_kp, float((got - plain).abs().max()))
+            check(d == 0, f"attention: {name}, kernel vs plain version at bq {b}, {d} of "
+                  f"{got.numel()} elements differ")
+        want = native_attention(q, k, v, mask, softcap)
+        err = float(((y_k - want).abs().amax(dim=1) / v.abs().amax(dim=1)).max())
+        check(err <= 1e-12, f"attention: {name} vs native FP64 softmax attention, {err:.3e} "
+              f"<= 1e-12 * max|v| per column")
+        if name.startswith("q rows"):
+            col = y_k[:, :, 5].abs()
+            check(bool((col > 0).all()), f"attention: the 1e-300 columns come out at "
+                  f"{float(col.min()):.3e} .. {float(col.max()):.3e}")
+        if name.startswith(("causal", "decode")):
+            timed[name] = (q, k, v, mask, pq, pp, bq, bkv, want)
+        del y_k, y_r, plain, want
+    out = {}
+    for name, (q, k, v, mask, pq, pp, bq, bkv, want) in timed.items():
+        B, S, D = q.shape
+        T = k.shape[1]
+        ops = oa._decompose(q, k, v, pq, pp, bkv)
+        if S == T:
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        else:
+            keep = mask != 0
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        lib_err = float(((sdpa() - want).abs().amax(dim=1) / v.abs().amax(dim=1)).max())
+        check(lib_err <= 1e-12, f"attention: F.scaled_dot_product_attention computes the same "
+              f"function at {name} ({lib_err:.3e})")
+        t = {"ms": time_ms(lambda: oa._launch(*ops, mask, pq, pp, 0.0, bq, bkv), reps=10),
+             "plain_ms": time_ms(lambda: oa.attention_ref(q, k, v, mask, pq, pp, 0.0, bkv),
+                                 reps=3),
+             "library_ms": time_ms(sdpa, reps=10),
+             "wrapper_ms": time_ms(lambda: oa.attention_fused(q, k, v, mask, pq, pp, bq=bq,
+                                                              bkv=bkv), reps=5)}
+        nbytes = 8 * B * (S * D + 2 * T * D) + 8 * B * S * D + S * T
+        t_bytes, t_ops = byte_bound(nbytes), 4.0 * B * S * T * D * pq.r / INT8_OPS_PER_S * 1e3
+        t["bound_ms"], t["bound_by"] = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                                            else "operations")
+        print(f"attention: {name}, D {D}, r {pq.r}: kernel {t['ms']:.3f} ms (bq {bq}), plain "
+              f"{t['plain_ms']:.3f} ms, F.scaled_dot_product_attention f64 "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+              f"with Phase 1: attention_fused {t['wrapper_ms']:.3f} ms", flush=True)
+        out[name] = t
+    del timed, cases
+    t = out["causal prefill 32 x 512 x 512"]
+    return {"name": "attention_fused", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ozaki_attention.cu",
+            "replaces": "src/repro/kernels/ozaki_attention.py:201", "launches": None,
+            "max_abs_err": err_kp, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
+def serve_phase(dev):
+    """The serving main path; returns the launch counts it read."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import dispatch, splitting
+    from repro_torch.kernels import carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import ContinuousBatcher, Request, ServeEngine
+
+    cfg = registry.get_config("yi-6b", policy_name="ozaki2_int8", compute_dtype="float32")
+    L = cfg.num_layers
+    print(f"serve: {cfg.name} d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {L} layers; "
+          f"policy {cfg.policy_name}, compute {cfg.compute_dtype}", flush=True)
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve: {n_params} weights made on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, 16) for _ in range(3)]
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 512)), device=dev)
+
+    # dispatch.attention and dispatch.matmul (the weight products with their
+    # Phase 1) timed with CUDA events inside the decode steps
+    events = {"attention": [], "matmul": []}
+    real = {"attention": dispatch.attention, "matmul": dispatch.matmul}
+
+    def timed(name):
+        def call(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real[name](*args, **kw)
+            b.record()
+            events[name].append((a, b))
+            return out
+        return call
+
+    def patch(fns):
+        dispatch.attention, dispatch.matmul = fns["attention"], fns["matmul"]
+
+    engine = ServeEngine(model, batch_slots=2, max_seq=32)
+    steps, real_call = [], engine._decode_call
+
+    def counted_call(toks, pos):
+        t = time.perf_counter()
+        out = real_call(toks, pos)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+        return out
+
+    engine._decode_call = counted_call
+    batcher = ContinuousBatcher(engine)
+    for uid, p in enumerate(prompts):
+        batcher.submit(Request(uid=uid, prompt=p, max_new_tokens=8))
+    counts = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo, ozaki_attention.attention_fused,
+              carry_fold.carry_fold)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in counts:
+        k.launches = 0
+    patch({name: timed(name) for name in real})
+    t0 = time.perf_counter()
+    try:
+        done = batcher.run_to_completion()
+    finally:
+        patch(real)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits_k, _ = model.apply({"tokens": tokens})
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counts}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    calls = len(steps) + 1
+    check(launches["attention_fused"] == L * calls,
+          f"serve: attention_fused launched layers x calls = {L} x {calls} = "
+          f"{launches['attention_fused']} times")
+    check(launches["gemm_hilo"] == (7 * L + 1) * calls,
+          f"serve: gemm_hilo launched (7 x layers + 1) x calls = {7 * L + 1} x {calls} = "
+          f"{launches['gemm_hilo']} times")
+    check(launches["gemv_hilo"] == 0 and launches["carry_fold"] == 0,
+          f"serve: no gemv_hilo or carry_fold launch ({launches})")
+    ntok = sum(len(r.generated) for r in done)
+    check(len(done) == 3 and ntok == 24, f"serve: 3 requests served through 2 slots, {ntok} "
+          f"tokens")
+    shape = tuple(logits_k.shape)
+    check(bool(torch.isfinite(logits_k).all()) and shape == (1, 512, cfg.vocab_size),
+          f"serve: forward logits finite, shape {shape}")
+    check(len(events["attention"]) == L * len(steps) and
+          len(events["matmul"]) == (7 * L + 1) * len(steps),
+          f"serve: per decode step, one timed attention call per layer and one timed matmul "
+          f"per weight, over {len(steps)} steps")
+    step_ms = 1e3 * sum(steps) / len(steps)
+    part = {k: sum(a.elapsed_time(b) for a, b in v) / len(steps) for k, v in events.items()}
+    rest = step_ms - part["matmul"] - part["attention"]
+    # gemm_hilo alone at a decode step's shapes: the 2 slots padded to 128 rows
+    # against each weight of a layer (x layers) and the LM head
+    layer = model.layers[0].tree()
+    weights = [layer["mixer"][n]["w"] for n in ("wq", "wk", "wv", "wo")] + \
+              [layer["mlp"][n]["w"] for n in ("wi_gate", "wi_up", "wo")]
+
+    def gemm_ms(w):
+        plan = dispatch.get_plan(w.shape[0])
+        x = torch.randn((128, w.shape[0]), device=dev, dtype=torch.float64)
+        ah, al = splitting.split_hi_lo(splitting.scale_to_int(x, plan.payload_bits, -1)[0])
+        bh, bl = splitting.split_hi_lo(splitting.scale_to_int(w.double(), plan.payload_bits,
+                                                              0)[0])
+        return time_ms(lambda: ozaki_gemm.gemm_hilo(ah, al, bh, bl, plan), reps=5)
+
+    part["gemm_hilo"] = L * sum(gemm_ms(w) for w in weights) + gemm_ms(model.lm_head.w)
+    print(f"serve: {len(steps)} decode steps ({sum(len(p) for p in prompts)} prompt steps + "
+          f"batched steps) at {step_ms:.3f} ms each (mean, host clock); {ntok} tokens in "
+          f"{t_serve:.3f} s = {ntok / t_serve:.3f} tokens/s; forward of 512 tokens "
+          f"{1e3 * t_fwd:.1f} ms; peak memory {peak:.3f} GiB; launches {launches}", flush=True)
+    print(f"serve: a decode step over {L} layers (CUDA events, mean): weight products "
+          f"(dispatch.matmul) {part['matmul']:.3f} ms, of it the gemm_hilo kernel "
+          f"{part['gemm_hilo']:.3f} ms (timed alone at the step's shapes) and Phase 1, "
+          f"padding and the unscale {part['matmul'] - part['gemm_hilo']:.3f} ms; "
+          f"dispatch.attention "
+          f"{part['attention']:.3f} ms ({100 * part['attention'] / step_ms:.2f}% of the step); "
+          f"the rest {rest:.3f} ms", flush=True)
+    for r in sorted(done, key=lambda r: r.uid):
+        print(f"serve: request {r.uid} -> {r.generated}", flush=True)
+
+    # the reference route, at all L layers
+    t0 = time.perf_counter()
+    with dispatch.mode_scope("ref"):
+        logits_r, _ = model.apply({"tokens": tokens})
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    check(n_diff(logits_k, logits_r) == 0,
+          f"serve: kernel vs reference route at {L} of {L} layers, forward logits, "
+          f"{n_diff(logits_k, logits_r)} of {logits_k.numel()} elements differ (reference "
+          f"forward {1e3 * t_ref:.1f} ms)")
+    del logits_r
+    diffs = []
+    caches = {m: model.init_cache(2, 32) for m in ("auto", "ref")}
+    for t in range(4):
+        toks = torch.as_tensor(prompts[0][t:t + 1].repeat(2)[:, None], device=dev)
+        outs = {}
+        for m in caches:
+            with dispatch.mode_scope(m):
+                outs[m], caches[m] = model.decode_step(caches[m], toks, t)
+        diffs.append(n_diff(outs["auto"], outs["ref"]))
+    check(diffs == [0] * 4, f"serve: kernel vs reference route at {L} of {L} layers, first 4 "
+          f"decode steps, differing elements {diffs}")
+    del caches
+
+    # the fp64 policy on the same weights
+    cfg64 = registry.get_config("yi-6b", policy_name="fp64", compute_dtype="float32")
+    model64 = Model(cfg64).load(dict(model.state_dict()))
+    logits_64, _ = model64.apply({"tokens": tokens})
+    err = float((logits_k - logits_64).abs().max())
+    ok = bool(torch.allclose(logits_k, logits_64, rtol=1e-3, atol=1e-4))
+    check(ok, f"serve: emulated logits within rtol 1e-3, atol 1e-4 of the fp64 policy's "
+          f"(max |diff| {err:.3e})")
+    return launches
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -493,6 +800,7 @@ def main():
     launches = {"gemm_hilo": ozaki_gemm.gemm_hilo.launches,
                 "gemv_hilo": ozaki_gemv.gemv_hilo.launches}
     CARRY_LAUNCHES["dense CG"] = carry_fold.carry_fold.launches
+    GEMM_LAUNCHES["DGEMM"] = launches["gemm_hilo"]
     print(f"main: dispatch.matmul {N}^3 {t_gemm * 1e3:.1f} ms (first call); "
           f"cg_solve_dense n={N}: {res_k.iters} iterations, converged={res_k.converged}; "
           f"launches {launches}", flush=True)
@@ -616,6 +924,12 @@ def main():
     stencil_kernel = stencil_phases(dev, gen)
     spmv_kernel = spmv_phases(dev, gen)
     carry_kernel = carry_phase(dev, gen)
+    torch.cuda.empty_cache()
+    attention_kernel = attention_phase(dev, gen)
+    torch.cuda.empty_cache()
+    serve_launches = serve_phase(dev)
+    attention_kernel["launches"] = serve_launches["attention_fused"]
+    GEMM_LAUNCHES["serve"] = serve_launches["gemm_hilo"]
 
     # -------------------------------------------------------------- summary
     g_bound, g_by = bound(N, N, N, plan.r)
@@ -624,7 +938,7 @@ def main():
         {"name": "gemm_hilo", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ozaki_gemm.cu",
          "replaces": "src/repro/kernels/ozaki_gemm.py:63",
-         "launches": launches["gemm_hilo"], "max_abs_err": gemm_err, "ms": gemm_ms,
+         "launches": sum(GEMM_LAUNCHES.values()), "max_abs_err": gemm_err, "ms": gemm_ms,
          "plain_ms": gemm_plain_ms, "bound_ms": g_bound, "bound_by": g_by,
          "library_ms": gemm_lib_ms},
         {"name": "gemv_hilo", "route": "cuda",
@@ -633,10 +947,10 @@ def main():
          "launches": launches["gemv_hilo"], "max_abs_err": gemv[1]["err"],
          "ms": gemv[1]["ms"], "plain_ms": gemv[1]["plain_ms"], "bound_ms": v_bound,
          "bound_by": v_by, "library_ms": gemv[1]["library_ms"]},
-        stencil_kernel, spmv_kernel, carry_kernel,
+        stencil_kernel, spmv_kernel, carry_kernel, attention_kernel,
     ]
     print("kernels: " + ", ".join(f"{k['name']} {k['launches']} launches" for k in kernels)
-          + " on the main paths", flush=True)
+          + f" on the main paths (gemm_hilo {GEMM_LAUNCHES})", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}", file=sys.stderr)
         return 1

@@ -16,8 +16,11 @@ here:
      columns contribute zero residues).  ``spmv`` (Blocked-ELL, kind
      ``spmv_bell``) and ``stencil7`` route between ``ozaki_spmv.spmv_bell`` /
      ``ozaki_stencil.stencil7`` and their plain versions ``spmv_bell_ref`` /
-     ``stencil7_ref``.  The kernels repeat the reference's arithmetic op for
-     op, so on one device the two routes are bitwise equal.
+     ``stencil7_ref``.  ``attention`` routes between the fused online-softmax
+     kernel ``ozaki_attention.attention_fused`` and ``attention_ref``, the same
+     scan composed from ``emulated_matmul`` per key block.  The kernels repeat
+     the reference's arithmetic op for op, so on one device the two routes are
+     bitwise equal.
 
   3. **Mode** — the route follows, in priority order, an explicit ``mode=``
      argument and this thread's ``mode_scope`` / ``set_mode`` override; the
@@ -28,8 +31,9 @@ here:
 
   4. **Tuning table** — ``get_tuning(kind, shape)`` resolves per-(kind,
      shape-class) parameters from ``TUNE_TABLE``: the kernels' padding granules
-     for gemm/gemv, the CUDA blocks of spmv_bell and stencil7, and the block
-     size of the compensated reductions (``reduce_block``).
+     for gemm/gemv, the CUDA blocks of spmv_bell and stencil7, attention's q
+     and key blocks, and the block size of the compensated reductions
+     (``reduce_block``).
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import torch.nn.functional as F
 from repro_torch.core import ozaki2
 
 MODES = ("auto", "ref", "kernel")
-KINDS = ("gemm", "gemv", "spmv_bell", "stencil7")
+KINDS = ("gemm", "gemv", "spmv_bell", "stencil7", "attention")
 # The compensated reductions take their block size from the tuning table too.
 # They have no Ozaki route, so "reduce" always resolves to "ref": their tree
 # runs as torch ops and their carry fold (kernels/carry_fold.py) follows the
@@ -57,12 +61,16 @@ AUTO_ROUTE = {
     "gemv": {"cuda": "kernel", "default": "ref"},
     "spmv_bell": {"cuda": "kernel", "default": "ref"},
     "stencil7": {"cuda": "kernel", "default": "ref"},
+    "attention": {"cuda": "kernel", "default": "ref"},
     "reduce": {"default": "ref"},
 }
 
 # RHS widths at or below this route to the batched-GEMV kernel instead of
 # padding N up to a GEMM tile.
 GEMV_MAX_B = 16
+
+# attention's bq and bkv round up to multiples of this (the reference's sublane).
+SUBLANE = 8
 
 _tls = threading.local()
 
@@ -138,12 +146,17 @@ def clear_plan_cache() -> None:
 # csrc/ozaki_gemv.cu: 8 rows per block, 32-byte K steps).  spmv_bell's br is
 # the rows (threads) per block of csrc/ozaki_spmv.cu; stencil7's block is bz
 # threads along z by by along y (csrc/ozaki_stencil.cu).  Neither changes a bit
-# of the result.
+# of the result.  attention's bq is the q rows of a CUDA block
+# (csrc/ozaki_attention.cu: one 16-row MMA tile; the reference's 128 is a TPU
+# VMEM tile) and does not change the result; its bkv, the key block, is part of
+# the function (it sets plan_pv and p's scaling blocks) and stays the
+# reference's 128.
 TUNE_TABLE: Dict[Tuple[str, str], Dict[str, Any]] = {
     ("gemm", "*"): {"bm": 128, "bn": 128, "bk": 64},
     ("gemv", "*"): {"bm": 8, "bk": 32},
     ("spmv_bell", "*"): {"br": 128},
     ("stencil7", "*"): {"bz": 64, "by": 4},
+    ("attention", "*"): {"bq": 16, "bkv": 128},
     ("reduce", "*"): {"block": 512},
     # Kept from the reference's table (measured there on a CPU): >=64k-element
     # reductions take the shorter 256-lane block.
@@ -369,3 +382,54 @@ def stencil7(u: torch.Tensor, c: torch.Tensor, plan: Optional[ozaki2.Plan] = Non
         bz = int(tune["bz"]) if bz is None else bz
         return _stencil.stencil7(u, c, plan, out_rep=out_rep, bz=bz, by=int(tune["by"]))
     return _stencil.stencil7_ref(u, c, plan, out_rep=out_rep)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              mask: Optional[torch.Tensor] = None, softcap: float = 0.0,
+              plan_qk: Optional[ozaki2.Plan] = None, plan_pv: Optional[ozaki2.Plan] = None,
+              payload_bits: int = 53, substrate: str = "int8",
+              mode: Optional[str] = None) -> torch.Tensor:
+    """Fused emulated attention out = softmax(mask(QKᵀ/√D + softcap)) V.
+
+    q: (..., S, D) queries, k/v: (..., T, D) keys/values on one device; the
+    leading dims (batch, heads, ...) are flattened into independent problems.
+    ``mask`` is None (attend to all), a shared (S, T) array, or batched
+    (..., S, T); nonzero/True = attend.  ``softcap`` > 0 applies the tanh logit
+    cap between scaling and masking.  Returns float64 (..., S, D).
+
+    The route follows ``choose_route(plan_qk, "attention", mode)``: the fused
+    kernel (all problems in one launch) or ``attention_ref``, bitwise equal on
+    one device.  ``plan_qk`` covers the length-D score contraction,
+    ``plan_pv`` the length-bkv probability-value contraction; both resolve
+    from the plan cache when omitted.  bq and bkv come from the tuning table,
+    rounded to ``SUBLANE`` and capped at S and T rounded up.
+    """
+    from repro_torch.kernels import ozaki_attention as _attn  # deferred: kernels import core
+
+    lead = tuple(q.shape[:-2])
+    S, D = q.shape[-2:]
+    T = k.shape[-2]
+    B = 1
+    for d in lead:
+        B *= int(d)
+    tune = get_tuning("attention", (B, S, D, T))
+    bq = min(_round_up(int(tune["bq"]), SUBLANE), _round_up(S, SUBLANE))
+    bkv = min(_round_up(int(tune["bkv"]), SUBLANE), _round_up(T, SUBLANE))
+    if plan_qk is None:
+        plan_qk = get_plan(D, payload_bits, substrate)
+    if plan_pv is None:
+        plan_pv = get_plan(bkv, payload_bits, substrate)
+    if mask is None:
+        mask = torch.ones((S, T), dtype=torch.int8, device=q.device)
+    mask = (mask != 0).to(torch.int8)
+    mask = mask.expand(B, S, T) if mask.ndim == 2 else mask.reshape(B, S, T)
+    f64 = torch.float64
+    qf = q.to(f64).reshape(B, S, D)
+    kf = k.to(f64).reshape(B, T, D)
+    vf = v.to(f64).reshape(B, T, D)
+    if _kernel_route(plan_qk, "attention", mode, q.device):
+        out = _attn.attention_fused(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bq=bq,
+                                    bkv=bkv)
+    else:
+        out = _attn.attention_ref(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bkv)
+    return out.reshape(lead + (S, D))

@@ -88,7 +88,7 @@ def decompose(x: torch.Tensor, plan: Plan, scale_axis: int,
 
 
 def _dot_int8(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
-    """Exact integer contraction of int8 residues (last axis of a, first of b)."""
+    """Exact integer contraction of int8 residues (last axis of a, next-to-last of b)."""
     return torch.matmul(a8.to(torch.float64), b8.to(torch.float64)).to(torch.int64)
 
 
@@ -99,7 +99,7 @@ def _chunked_modular_dot_int8(ares: torch.Tensor, bres: torch.Tensor,
     acc = None
     for s in range(0, k, _INT8_K_CHUNK):
         e = min(s + _INT8_K_CHUNK, k)
-        part = splitting.balanced_mod(_dot_int8(ares[..., s:e], bres[s:e]), m)
+        part = splitting.balanced_mod(_dot_int8(ares[..., s:e], bres[..., s:e, :]), m)
         acc = part if acc is None else splitting.balanced_mod(acc + part, m)
     return acc.to(torch.int32)
 
@@ -151,13 +151,15 @@ def emulated_matmul(a: torch.Tensor, b: torch.Tensor, plan: Plan,
                     out_dtype: torch.dtype = torch.float64) -> torch.Tensor:
     """FP64-accurate C = A @ B via Ozaki Scheme II.
 
-    a: (m, k), b: (k, n); float64 inputs for full FP64 emulation (float32 inputs
-    work with the payload clipped to 24 bits).  Runs on the operands' device.
+    a: (..., m, k), b: (..., k, n) with equal leading dims, each product on its
+    own (rows of a and columns of b scale per problem); float64 inputs for full
+    FP64 emulation (float32 inputs work with the payload clipped to 24 bits).
+    Runs on the operands' device.
     """
     a = a.to(out_dtype)
     b = b.to(out_dtype)
     ares, ashift = decompose(a, plan, scale_axis=-1, via_hilo=via_hilo)
-    bres, bshift = decompose(b, plan, scale_axis=0, via_hilo=via_hilo)
+    bres, bshift = decompose(b, plan, scale_axis=-2, via_hilo=via_hilo)
     cres = modular_matmul(ares, bres, plan)
     c_int = garner_reconstruct(cres, plan, out_dtype=out_dtype)
     return splitting.apply_unscale(c_int, ashift, bshift)
@@ -167,12 +169,6 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, plan: Plan,
                             **kw) -> torch.Tensor:
     """(..., m, k) x (..., k, n) emulated matmuls over equal leading dims
     (the reference maps ``emulated_matmul`` over them with ``vmap``)."""
-    if a.ndim == 2 and b.ndim == 2:
-        return emulated_matmul(a, b, plan, **kw)
     if a.shape[:-2] != b.shape[:-2]:
         raise ValueError(f"leading dims differ: {tuple(a.shape)} vs {tuple(b.shape)}")
-    lead = a.shape[:-2]
-    a3 = a.reshape((-1,) + tuple(a.shape[-2:]))
-    b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
-    out = torch.stack([emulated_matmul(x, y, plan, **kw) for x, y in zip(a3, b3)])
-    return out.reshape(tuple(lead) + tuple(out.shape[-2:]))
+    return emulated_matmul(a, b, plan, **kw)

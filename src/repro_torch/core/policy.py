@@ -1,0 +1,80 @@
+"""Precision policies (``repro.core.policy``): how a model's weight matmuls compute.
+
+Every weight matmul in ``repro_torch.models`` goes through ``Policy.dot``;
+flipping the policy swaps the arithmetic between the native paths and the Ozaki
+emulation with no model-code changes.
+
+Policies:
+  bf16        — bf16 operands, float32 accumulation.
+  fp32        — float32 operands and accumulation.
+  fp64        — native float64 (the oracle).
+  ozaki2_int8 — Ozaki Scheme II on int8 residue products (``dispatch.matmul``).
+  ozaki2_fp8  — Ozaki Scheme II on the FP8 substrate: not ported (ROADMAP slice 7).
+  ozaki1_int8 — Ozaki Scheme I mantissa slicing: not ported (ROADMAP slice 7).
+
+The reference gives the emulated dot a custom VJP; the port has no training path
+yet, so ``dot`` is forward-only (the VJP comes with the training slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import dispatch
+
+POLICIES = ("bf16", "fp32", "fp64", "ozaki2_int8", "ozaki2_fp8", "ozaki1_int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Dispatches matmuls to a numeric path.  Hashable."""
+
+    name: str = "bf16"
+    payload_bits: int = 53
+
+    def __post_init__(self):
+        if self.name not in POLICIES:
+            raise ValueError(f"unknown policy {self.name!r}; choose from {POLICIES}")
+
+    @property
+    def is_emulated(self) -> bool:
+        return self.name.startswith("ozaki")
+
+    def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """y[..., n] = x[..., k] @ w[k, n] under this policy, in x's dtype.
+
+        bf16 rounds the operands to bfloat16 and accumulates in float32 (as the
+        reference's ``preferred_element_type``); fp32 and fp64 multiply in
+        those types; ozaki2_int8 runs ``dispatch.dot`` (the seam's matmul over
+        flattened leading dims) in float64 with the cached plan for k.
+        """
+        if self.name == "bf16":
+            bf = torch.bfloat16
+            return torch.matmul(x.to(bf).float(), w.to(bf).float()).to(x.dtype)
+        if self.name == "fp32":
+            return torch.matmul(x.float(), w.float()).to(x.dtype)
+        if self.name == "fp64":
+            return torch.matmul(x.double(), w.double()).to(x.dtype)
+        if self.name == "ozaki2_int8":
+            plan = dispatch.get_plan(x.shape[-1], self.payload_bits, substrate="int8")
+            return dispatch.dot(x.double(), w.double(), plan=plan).to(x.dtype)
+        raise NotImplementedError(
+            f"policy {self.name!r} is not ported yet (ROADMAP slice 7: the FP8 substrate "
+            f"and Ozaki Scheme I)")
+
+    def matmul_flops_multiplier(self) -> int:
+        """TME α for this policy (1 for native paths) — used by the roofline tooling."""
+        if self.name in ("bf16", "fp32", "fp64"):
+            return 1
+        if self.name == "ozaki2_int8":
+            return 16          # r at k~4096, p=53
+        if self.name == "ozaki2_fp8":
+            return 48          # 3r
+        if self.name == "ozaki1_int8":
+            return 64          # S² at S=8
+        raise AssertionError(self.name)
+
+
+DEFAULT_POLICY = Policy("bf16")

@@ -24,7 +24,8 @@ import numpy as np
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("ozaki_gemm", "ozaki_gemv", "ozaki_stencil", "ozaki_spmv", "carry_fold")
+SOURCES = ("ozaki_gemm", "ozaki_gemv", "ozaki_stencil", "ozaki_spmv", "carry_fold",
+           "ozaki_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_R = 20  # ozaki::kMaxR
@@ -44,6 +45,9 @@ ENTRY_POINTS = {
     "ozaki_spmv": ("ozaki_spmv_hilo", [_INT] + [_VOID_P] * 5 + [_INT] * 4 + [_VOID_P] * 3),
     # (device, dtype_bytes, s_b, c_b, nb, lanes, out, stream)
     "carry_fold": ("carry_fold", [_INT] * 2 + [_VOID_P] * 2 + [_INT64] * 2 + [_VOID_P] * 2),
+    # (device, q_hi, q_lo, k_hi, k_lo, v_hi, v_lo, sq, sk, sv, mask, out, qres, kres,
+    #  vres, shape, params, stream)
+    "ozaki_attention": ("ozaki_attention_fused", [_INT] + [_VOID_P] * 17),
 }
 
 

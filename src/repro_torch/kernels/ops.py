@@ -5,8 +5,9 @@ kernel call: Phase-1 scaling, the hi/lo split, padding to block multiples, the
 digit epilogue and the exact unscale.  They ARE the kernel route;
 ``repro_torch.core.dispatch.matmul`` calls them.  The kernel wrappers take the
 plain version for CPU tensors, so these run (bitwise equal) on the CPU too.
-``ozaki_stencil7`` / ``ozaki_spmv_bell`` are routed through the seam
-(``dispatch.stencil7`` / ``dispatch.spmv``) like every emulated multiplication.
+``ozaki_stencil7`` / ``ozaki_spmv_bell`` / ``ozaki_attention`` are routed through
+the seam (``dispatch.stencil7`` / ``dispatch.spmv`` / ``dispatch.attention``) like
+every emulated multiplication.
 """
 
 from __future__ import annotations
@@ -86,6 +87,21 @@ def ozaki_stencil7(u: torch.Tensor, c: torch.Tensor, plan: Optional[ozaki2.Plan]
     [centre, -x, +x, -y, +y, -z, +z].  Boundary points use a zero halo.
     """
     return dispatch.stencil7(u, c, plan=plan, out_rep=out_rep, bz=bz, mode=mode)
+
+
+def ozaki_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None, softcap: float = 0.0,
+                    plan_qk: Optional[ozaki2.Plan] = None, plan_pv: Optional[ozaki2.Plan] = None,
+                    mode: Optional[str] = None) -> torch.Tensor:
+    """Fused emulated attention softmax(mask(QKᵀ/√D)) V, dispatch-routed.
+
+    q: (..., S, D), k/v: (..., T, D), mask: None | (S, T) | (..., S, T)
+    (nonzero = attend).  ``mode`` selects the fused Hopper kernel (QKᵀ and PV
+    as Ozaki-II residue products inside one online-softmax sweep) or the
+    bitwise-equal reference composed from the emulated GEMMs.
+    """
+    return dispatch.attention(q, k, v, mask=mask, softcap=softcap, plan_qk=plan_qk,
+                              plan_pv=plan_pv, mode=mode)
 
 
 def ozaki_spmv_bell(a_val: torch.Tensor, a_col: torch.Tensor, x: torch.Tensor,

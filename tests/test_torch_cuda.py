@@ -14,8 +14,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import compensated, dispatch, ozaki2, splitting  # noqa: E402
 from repro_torch.hpc import cg, jacobi  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    carry_fold, ozaki_gemm, ozaki_gemv, ozaki_spmv, ozaki_stencil)
+    carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv, ozaki_spmv, ozaki_stencil)
+from repro_torch.models.transformer import Model  # noqa: E402
 
 RNG = np.random.default_rng(17)
 
@@ -250,3 +252,89 @@ def test_cuda_carry_fold_raises_on_bad_input(cuda_device):
         carry_fold.carry_fold(s, s[:, :2])
     with pytest.raises(ValueError):
         carry_fold.carry_fold(s, s.cpu())
+
+
+def _attention_case(dev, B, S, T, D, kind):
+    q, k, v = _randn(dev, B, S, D), _randn(dev, B, T, D), _randn(dev, B, T, D)
+    if kind == "causal":
+        mask = torch.tril(torch.ones((S, T), dtype=torch.int8, device=dev), diagonal=T - S)
+        mask = mask.expand(B, S, T)
+    elif kind == "window":
+        i, j = torch.arange(S, device=dev)[:, None] + T - S, torch.arange(T, device=dev)[None]
+        mask = ((j <= i) & (i - j < 7)).to(torch.int8).expand(B, S, T).clone()
+        mask[:, S // 2] = 0                                       # a fully masked row
+    else:
+        mask = (torch.from_numpy(RNG.random((B, S, T))) < 0.7).to(torch.int8).to(dev)
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 37, 301, 80), (2, 1, 29, 128), (4, 70, 130, 16),
+                                   (1, 33, 8, 256), (5, 16, 128, 3)])
+@pytest.mark.parametrize("kind", ["causal", "window", "random"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_cuda_attention_matches_plain_version(cuda_device, shape, kind, softcap):
+    B, S, T, D = shape
+    q, k, v, mask = _attention_case(cuda_device, B, S, T, D, kind)
+    bkv = min(128, -(-T // 8) * 8)
+    pq, pp = dispatch.get_plan(D), dispatch.get_plan(bkv)
+    want = ozaki_attention.attention_ref(q, k, v, mask, pq, pp, softcap, bkv)
+    for bq in (16, 8, 5):
+        before = ozaki_attention.attention_fused.launches
+        got = ozaki_attention.attention_fused(q, k, v, mask, pq, pp, softcap, bq=bq, bkv=bkv)
+        torch.cuda.synchronize()
+        assert ozaki_attention.attention_fused.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_cuda_attention_routes_bitwise(cuda_device, lead):
+    S, T, D = 21, 260, 128
+    q = _randn(cuda_device, *lead, S, D)
+    k, v = _randn(cuda_device, *lead, T, D), _randn(cuda_device, *lead, T, D)
+    for mask in (None, torch.rand((S, T), device=cuda_device) < 0.5):
+        got = dispatch.attention(q, k, v, mask=mask, softcap=20.0)
+        torch.testing.assert_close(got, dispatch.attention(q, k, v, mask=mask, softcap=20.0,
+                                                           mode="ref"), rtol=0, atol=0)
+        assert tuple(got.shape) == tuple(lead) + (S, D)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_raises_on_bad_input(cuda_device):
+    q, k, v, mask = _attention_case(cuda_device, 2, 9, 20, 16, "causal")
+    pq, pp = dispatch.get_plan(16), dispatch.get_plan(24)
+    with pytest.raises(ValueError):
+        ozaki_attention.attention_fused(q, k, v, mask, pq, pp, bq=17, bkv=24)
+    with pytest.raises(ValueError):
+        ozaki_attention.attention_fused(q, k, v, mask, pq, pp, bq=16, bkv=20)   # bkv % 8
+    with pytest.raises(TypeError):
+        ozaki_attention.attention_fused(q.to(torch.int32), k, v, mask, pq, pp, bq=16, bkv=24)
+    with pytest.raises(ValueError):
+        ozaki_attention.attention_fused(q, k, v.cpu(), mask, pq, pp, bq=16, bkv=24)
+    with pytest.raises(ValueError):
+        ozaki_attention.attention_fused(q, k, v, mask[:, :, :19], pq, pp, bq=16, bkv=24)
+    big = _randn(cuda_device, 1, 4, 300)
+    with pytest.raises(ValueError):                               # D above the kernel's 256
+        ozaki_attention.attention_fused(big, big, big, torch.ones((1, 4, 4), dtype=torch.int8,
+                                                                  device=cuda_device),
+                                        dispatch.get_plan(300), dispatch.get_plan(8), bq=8, bkv=8)
+    with pytest.raises(ValueError):                               # not a DEFAULT_MODULI prefix
+        ozaki_attention.attention_fused(q, k, v, mask, ozaki2.Plan((251, 241), 20), pp, bq=16,
+                                        bkv=24)
+
+
+@pytest.mark.cuda
+def test_cuda_yi6b_width_decode_step_routes_bitwise(cuda_device):
+    cfg = registry.get_config("yi-6b", num_layers=2, policy_name="ozaki2_int8",
+                              compute_dtype="float32")
+    model = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(3))
+    tokens = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 1))).to(cuda_device)
+    caches = {m: model.init_cache(2, 16) for m in ("kernel", "ref")}
+    for pos in range(3):
+        out = {}
+        for m in caches:
+            with dispatch.mode_scope(m):
+                out[m], caches[m] = model.decode_step(caches[m], tokens, pos)
+        torch.testing.assert_close(out["kernel"], out["ref"], rtol=0, atol=0)
+        assert bool(torch.isfinite(out["kernel"]).all())

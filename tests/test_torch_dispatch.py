@@ -78,8 +78,8 @@ def test_auto_resolves_by_device_and_kernel_mode_needs_cuda():
     with pytest.raises(ValueError):
         dispatch.matmul(a, b, mode="pallas")
     with pytest.raises(ValueError):
-        dispatch.choose_route(plan, "attention")
-    for kind in ("spmv_bell", "stencil7"):
+        dispatch.choose_route(plan, "fft")
+    for kind in ("spmv_bell", "stencil7", "attention"):
         assert dispatch.choose_route(plan, kind, device=torch.device("cpu")) == "ref"
         assert dispatch.choose_route(plan, kind, device=torch.device("cuda")) == "kernel"
         assert dispatch.choose_route(plan, kind, mode="kernel") == "kernel"
@@ -90,11 +90,15 @@ def test_auto_resolves_by_device_and_kernel_mode_needs_cuda():
         dispatch.stencil7(u, c, mode="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         dispatch.spmv(val, col, x, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        dispatch.attention(u, u, u, mode="kernel")
     with dispatch.mode_scope("kernel"):
         with pytest.raises(ValueError, match="CUDA"):
             ops.ozaki_stencil7(u, c)
         with pytest.raises(ValueError, match="CUDA"):
             ops.ozaki_spmv_bell(val, col, x)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.ozaki_attention(u, u, u)
 
 
 @pytest.mark.parametrize("mkn", [(1, 1, 1), (1000, 1537, 777), (1000, 1537, 5),
@@ -147,7 +151,7 @@ def test_plan_cache_and_tuning():
     assert dispatch.reduce_block(8192) == 512
     assert dispatch.reduce_block(40000) == 256
     with pytest.raises(ValueError):
-        dispatch.get_tuning("attention", (8,))
+        dispatch.get_tuning("fft", (8,))
 
 
 def test_tuning_of_the_sparse_and_stencil_kinds():
