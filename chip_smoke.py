@@ -50,28 +50,31 @@ Phases (each prints its results; any failed check makes the script exit 1):
          batched and in float32 with inf, NaN and signed zeros; times of the
          fold and of a whole 256^3 norm and 104^3 dot.
   attention ``dispatch.attention`` and ``attention_fused`` at yi-6b's head_dim
-         128 (r = 15) in six cases: causal prefill 32 x 512 x 512 (the serve
+         128 (r = 15) in seven cases: causal prefill 32 x 512 x 512 (the serve
          phase's per-layer shape), ragged 6 x 37 x 301 with D = 80, softcap 30,
-         a sliding window of 64, decode S = 1 against a ring mask, and q rows
-         and v columns at ~1e-300.  In each: the kernel route against the
+         a sliding window of 64, decode S = 1 against a ring mask at the serve
+         phase's two cache lengths (32 with bkv 32, and 4096), and q
+         rows and v columns at ~1e-300.  In each: the kernel route against the
          reference route (bitwise), the kernel against its plain version at
          two bq (bitwise; the result must not depend on bq), and against a
          native-FP64 softmax attention (<= 1e-12 * max|v| per column).  Times of
          the kernel, its plain version, ``F.scaled_dot_product_attention`` f64
-         and the bound, at prefill and at decode.
+         and the bound, at prefill and at both decode lengths.
   serve  yi-6b at its published widths and all 32 layers (d_model 4096, 32
          heads over 4 KV heads, head_dim 128, d_ff 11008, vocab 64000), policy
          ozaki2_int8, compute float32, random weights from a seeded generator
          on the card.  The main path, with every launch count set to 0 just
          before and read just after: ``ContinuousBatcher`` serves 3 requests of
-         16 seeded prompt tokens and 8 new tokens through 2 slots, then one
-         forward pass over 512 tokens, all on the ``auto`` route;
+         16 seeded prompt tokens and 8 new tokens through 2 slots, then
+         4 decode steps of a second engine whose 2 x 4096 cache is full
+         (seeded keys and values: the cost of attending over a long context),
+         then one forward pass over 512 tokens, all on the ``auto`` route;
          ``attention_fused`` launched layers x calls and ``gemm_hilo``
          (7 x layers + 1) x calls times.  Then the reference route (bitwise
          forward logits and first 4 decode steps, at all 32 layers), and the
          emulated logits against the fp64 policy's (rtol 1e-3, atol 1e-4).
          Prints decode ms/step, tokens/s, ``dispatch.attention``'s share of a
-         decode step (CUDA events) and peak memory.
+         decode step (CUDA events) at both cache lengths, and peak memory.
 Then one JSON line describing each kernel, and the contract's last line.
 
 Tolerances: every kernel and route comparison is bitwise (0 differing
@@ -101,6 +104,9 @@ HPCG_N = 104             # HPCG's default local grid (hpcg.dat: 104 104 104)
 CG_REF_ITERS = 50        # CG iterations compared across routes
 
 ATTN_D = 128             # yi-6b's head_dim
+SERVE_CTX = 32           # the batcher's cache length
+LONG_CTX = 4096          # yi-6b's pretraining context (arXiv:2403.04652)
+LONG_STEPS = 4           # decode steps against the full LONG_CTX cache
 
 FAILURES = []
 CARRY_LAUNCHES = {}      # carry_fold launches on each main path
@@ -479,8 +485,13 @@ def attention_phase(dev, gen):
 
     i = torch.arange(512, device=dev)
     window = ((i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < 64)).to(torch.int8)
-    slots, pos = torch.arange(128, device=dev), 76          # a ring of 128 at position 76
-    ring = (slots <= pos).to(torch.int8)[None, None].expand(64, 1, 128)
+
+    def ring(t, pos):                                     # 2 slots x 32 heads at `pos`
+        return (torch.arange(t, device=dev) <= pos).to(torch.int8)[None, None].expand(64, 1, t)
+
+    def decode(t):
+        return [randn(64, 1, ATTN_D), randn(64, t, ATTN_D), randn(64, t, ATTN_D)]
+
     tiny = [randn(4, 64, ATTN_D), randn(4, 64, ATTN_D), randn(4, 64, ATTN_D)]
     tiny[0][:, 3] *= 1e-300
     tiny[2][:, :, 5] *= 1e-300
@@ -493,8 +504,10 @@ def attention_phase(dev, gen):
          tril(8, 256, 256), 30.0),
         ("window 64, 8 x 512 x 512", [randn(8, 512, ATTN_D) for _ in range(3)],
          window.expand(8, 512, 512), 0.0),
-        ("decode 64 x 1 x 128, ring mask", [randn(64, 1, ATTN_D), randn(64, 128, ATTN_D),
-                                            randn(64, 128, ATTN_D)], ring, 0.0),
+        (f"decode 64 x 1 x {SERVE_CTX}, ring mask", decode(SERVE_CTX), ring(SERVE_CTX, 20),
+         0.0),
+        (f"decode 64 x 1 x {LONG_CTX}, ring mask", decode(LONG_CTX),
+         ring(LONG_CTX, LONG_CTX - 2), 0.0),
         ("q rows and v columns at 1e-300", tiny, torch.ones((4, 64, 64), dtype=torch.int8,
                                                             device=dev), 0.0),
     ]
@@ -513,7 +526,7 @@ def attention_phase(dev, gen):
         check(n_diff(y_k, y_r) == 0, f"attention: {name}, kernel vs reference route, "
               f"{n_diff(y_k, y_r)} of {y_k.numel()} elements differ")
         plain = oa.attention_ref(q, k, v, mask, pq, pp, softcap, bkv)
-        for b in sorted({bq, 8}, reverse=True):
+        for b in sorted({bq, 8} if bq > 8 else {bq, 1}, reverse=True):
             got = oa.attention_fused(q, k, v, mask, pq, pp, softcap, bq=b, bkv=bkv)
             d = n_diff(got, plain)
             if name.startswith("causal"):
@@ -613,18 +626,32 @@ def serve_phase(dev):
     def patch(fns):
         dispatch.attention, dispatch.matmul = fns["attention"], fns["matmul"]
 
-    engine = ServeEngine(model, batch_slots=2, max_seq=32)
-    steps, real_call = [], engine._decode_call
+    def timed_steps(eng):
+        """Host-clock times of the engine's decode steps."""
+        log, real_call = [], eng._decode_call
 
-    def counted_call(toks, pos):
-        t = time.perf_counter()
-        out = real_call(toks, pos)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t)
-        return out
+        def call(toks, pos):
+            t = time.perf_counter()
+            out = real_call(toks, pos)
+            torch.cuda.synchronize()
+            log.append(time.perf_counter() - t)
+            return out
 
-    engine._decode_call = counted_call
+        eng._decode_call = call
+        return log
+
+    engine = ServeEngine(model, batch_slots=2, max_seq=SERVE_CTX)
+    steps = timed_steps(engine)
     batcher = ContinuousBatcher(engine)
+    # a second engine whose caches hold LONG_CTX - LONG_STEPS positions already:
+    # seeded keys and values, what a prompt of that length would leave (its
+    # contents do not change the work of a step)
+    long_engine = ServeEngine(model, batch_slots=2, max_seq=LONG_CTX)
+    cache_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for layer_cache in long_engine.cache:
+        for t in layer_cache["kv"].values():
+            t.normal_(generator=cache_gen)
+    long_steps = timed_steps(long_engine)
     for uid, p in enumerate(prompts):
         batcher.submit(Request(uid=uid, prompt=p, max_new_tokens=8))
     counts = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo, ozaki_attention.attention_fused,
@@ -637,17 +664,22 @@ def serve_phase(dev):
     t0 = time.perf_counter()
     try:
         done = batcher.run_to_completion()
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        n_short = {k: len(v) for k, v in events.items()}
+        toks = rng.integers(0, cfg.vocab_size, 2)
+        for pos in range(LONG_CTX - LONG_STEPS, LONG_CTX):
+            toks = long_engine.decode_step_all(toks, pos)
     finally:
         patch(real)
     torch.cuda.synchronize()
-    t_serve = time.perf_counter() - t0
     t0 = time.perf_counter()
     logits_k, _ = model.apply({"tokens": tokens})
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in counts}
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    calls = len(steps) + 1
+    calls = len(steps) + len(long_steps) + 1
     check(launches["attention_fused"] == L * calls,
           f"serve: attention_fused launched layers x calls = {L} x {calls} = "
           f"{launches['attention_fused']} times")
@@ -662,12 +694,20 @@ def serve_phase(dev):
     shape = tuple(logits_k.shape)
     check(bool(torch.isfinite(logits_k).all()) and shape == (1, 512, cfg.vocab_size),
           f"serve: forward logits finite, shape {shape}")
-    check(len(events["attention"]) == L * len(steps) and
-          len(events["matmul"]) == (7 * L + 1) * len(steps),
+    check(len(events["attention"]) == L * (len(steps) + LONG_STEPS) and
+          len(events["matmul"]) == (7 * L + 1) * (len(steps) + LONG_STEPS) and
+          len(long_steps) == LONG_STEPS,
           f"serve: per decode step, one timed attention call per layer and one timed matmul "
-          f"per weight, over {len(steps)} steps")
-    step_ms = 1e3 * sum(steps) / len(steps)
-    part = {k: sum(a.elapsed_time(b) for a, b in v) / len(steps) for k, v in events.items()}
+          f"per weight, over {len(steps)} + {len(long_steps)} steps")
+
+    def step_parts(times, evs):
+        """Mean host-clock ms of the steps, and of their timed calls (CUDA events)."""
+        n = len(times)
+        return 1e3 * sum(times) / n, {k: sum(a.elapsed_time(b) for a, b in v) / n
+                                      for k, v in evs.items()}
+
+    step_ms, part = step_parts(steps, {k: v[:n_short[k]] for k, v in events.items()})
+    long_ms, long_part = step_parts(long_steps, {k: v[n_short[k]:] for k, v in events.items()})
     rest = step_ms - part["matmul"] - part["attention"]
     # gemm_hilo alone at a decode step's shapes: the 2 slots padded to 128 rows
     # against each weight of a layer (x layers) and the LM head
@@ -695,6 +735,12 @@ def serve_phase(dev):
           f"dispatch.attention "
           f"{part['attention']:.3f} ms ({100 * part['attention'] / step_ms:.2f}% of the step); "
           f"the rest {rest:.3f} ms", flush=True)
+    print(f"serve: {LONG_STEPS} decode steps against a {LONG_CTX}-slot cache at positions "
+          f"{LONG_CTX - LONG_STEPS}..{LONG_CTX - 1}, {long_ms:.3f} ms each (mean, host clock; {[round(1e3 * t, 3) for t in long_steps]}): "
+          f"weight products {long_part['matmul']:.3f} ms; dispatch.attention "
+          f"{long_part['attention']:.3f} ms ({100 * long_part['attention'] / long_ms:.2f}% of "
+          f"the step); the rest {long_ms - long_part['matmul'] - long_part['attention']:.3f} ms",
+          flush=True)
     for r in sorted(done, key=lambda r: r.uid):
         print(f"serve: request {r.uid} -> {r.generated}", flush=True)
 

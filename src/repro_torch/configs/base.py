@@ -7,7 +7,9 @@ same family for CPU tests).
 Layer topology is a repeating ``pattern`` of ``BlockCfg`` entries (mixer kind +
 MLP kind + attention window): ``num_layers // period`` periods plus a tail of
 the pattern's first ``num_layers % period`` blocks.  Dtype names map to torch
-dtypes.
+dtypes.  The reference's fields that only training or the unported layers read
+(remat, the SSM and xLSTM chunks, encoder frames, frontends, M-RoPE sections,
+MoE routing knobs) come with the slice that reads them.
 """
 
 from __future__ import annotations
@@ -26,8 +28,6 @@ class MoECfg:
     top_k: int
     d_expert: int
     num_shared: int = 0
-    capacity_factor: float = 1.25
-    router_zloss: float = 1e-3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,27 +58,19 @@ class ModelConfig:
     mlp_act: str = "swiglu"          # swiglu | geglu (gated; d_ff = hidden width) | relu2
     rope_theta: float = 10_000.0
     rope_type: str = "standard"      # standard | mrope | none
-    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     moe: Optional[MoECfg] = None
     # SSM / xLSTM
     ssm_state_dim: int = 16
-    ssm_conv_width: int = 4
     ssm_expand: int = 2
     # encoder-decoder
     encoder_layers: int = 0
-    encoder_seq: int = 0             # e.g. whisper: 1500 frames
-    frontend: Optional[str] = None   # audio | vision | None
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     policy_name: str = "bf16"        # precision policy for weight matmuls
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
-    remat: bool = True               # activation checkpointing per period (training)
-    force_unroll: bool = False       # the reference's unrolled-layer switch for cost counting
     attn_chunk: int = 1024           # flash-style q-block size (0 = unchunked)
-    ssm_chunk: int = 256             # mamba outer time-chunk
-    lstm_chunk: int = 64             # xLSTM chunk
 
     @property
     def period(self) -> int:
@@ -149,10 +141,6 @@ class ShapeSpec:
     global_batch: int
     kind: str                        # train | prefill | decode
 
-    @property
-    def is_decode(self) -> bool:
-        return self.kind == "decode"
-
 
 SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec("train_4k", 4_096, 256, "train"),
@@ -160,5 +148,3 @@ SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec("decode_32k", 32_768, 128, "decode"),
     ShapeSpec("long_500k", 524_288, 1, "decode"),
 )
-
-SHAPES_BY_NAME = {s.name: s for s in SHAPES}

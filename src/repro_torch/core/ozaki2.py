@@ -151,8 +151,8 @@ def emulated_matmul(a: torch.Tensor, b: torch.Tensor, plan: Plan,
                     out_dtype: torch.dtype = torch.float64) -> torch.Tensor:
     """FP64-accurate C = A @ B via Ozaki Scheme II.
 
-    a: (..., m, k), b: (..., k, n) with equal leading dims, each product on its
-    own (rows of a and columns of b scale per problem); float64 inputs for full
+    a: (..., m, k), b: (..., k, n) with leading dims that broadcast, each product
+    on its own (rows of a and columns of b scale per problem); float64 inputs for full
     FP64 emulation (float32 inputs work with the payload clipped to 24 bits).
     Runs on the operands' device.
     """
@@ -163,12 +163,3 @@ def emulated_matmul(a: torch.Tensor, b: torch.Tensor, plan: Plan,
     cres = modular_matmul(ares, bres, plan)
     c_int = garner_reconstruct(cres, plan, out_dtype=out_dtype)
     return splitting.apply_unscale(c_int, ashift, bshift)
-
-
-def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, plan: Plan,
-                            **kw) -> torch.Tensor:
-    """(..., m, k) x (..., k, n) emulated matmuls over equal leading dims
-    (the reference maps ``emulated_matmul`` over them with ``vmap``)."""
-    if a.shape[:-2] != b.shape[:-2]:
-        raise ValueError(f"leading dims differ: {tuple(a.shape)} vs {tuple(b.shape)}")
-    return emulated_matmul(a, b, plan, **kw)

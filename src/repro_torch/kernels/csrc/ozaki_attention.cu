@@ -101,15 +101,16 @@ __device__ __forceinline__ double ldexp_ref(double x, int n) {
   return (isinf(x) || x == 0.0) ? x : y;
 }
 
-// The float of the digits as ozaki2.garner_reconstruct sums them: a
-// compensated double-double Horner whose correction term is comp + (e_sum +
+// The float of the first n <= R digits as ozaki2.garner_reconstruct sums them:
+// a compensated double-double Horner whose correction term is comp + (e_sum +
 // e_prod).  (common.digits_to_f64 adds the two errors one at a time.)
 template <int R>
-__device__ __forceinline__ double garner_f64(const int (&t)[R], const GarnerParams& p) {
+__device__ __forceinline__ double garner_f64(const int (&t)[R], const GarnerParams& p, int n) {
   const double split = 134217729.0;  // 2^27 + 1
   double out = 0.0, comp = 0.0;
 #pragma unroll
   for (int j = 0; j < R; ++j) {
+    if (j >= n) break;
     const double tf = (double)t[j];
     const double ph = p.pref_f64[j];
     const double pr = tf * ph;
@@ -130,15 +131,18 @@ __device__ __forceinline__ double garner_f64(const int (&t)[R], const GarnerPara
   return out + comp;
 }
 
-// Garner of one element whose R balanced residues lie in planes of `plane` bytes.
+// Garner of one element over the first n <= R moduli, its balanced residues in
+// planes of `plane` bytes.  The plan of n moduli is the prefix of the plan of R
+// (moduli and Garner constants), and digit j depends on residues 0 .. j only, so
+// the first n of R digits are the n-modulus plan's digits.
 template <int R>
 __device__ __forceinline__ double reconstruct(const int8_t* res, int plane,
-                                              const GarnerParams& p) {
+                                              const GarnerParams& p, int n) {
   int r[R], t[R];
 #pragma unroll
-  for (int j = 0; j < R; ++j) r[j] = res[j * plane];
+  for (int j = 0; j < R; ++j) r[j] = j < n ? res[j * plane] : 0;
   garner_digits<R>(r, p, t);
-  return garner_f64<R>(t, p);
+  return garner_f64<R>(t, p, n);
 }
 
 __device__ __forceinline__ int4 lds16(const int8_t* p) {
@@ -204,15 +208,15 @@ __host__ __device__ inline AttnSmem attn_smem(const AttnShape& sh, int rmax) {
 }
 
 // One block: q rows row0 .. row0 + bq - 1 of problem blockIdx.y, over all keys.
-template <int RQ, int RP>
+// R = max(rq, rp): Q K^T runs over sh.rq moduli and P V over sh.rp.
+template <int R>
 __global__ void __launch_bounds__(kAttnThreads) attention_kernel(
     const int8_t* __restrict__ qres, const int8_t* __restrict__ kres,
     const int8_t* __restrict__ vres, const int* __restrict__ sq, const int* __restrict__ sk,
     const int* __restrict__ sv, const int8_t* __restrict__ mask, double* __restrict__ out,
     const AttnShape sh, const __grid_constant__ GarnerParams p) {
-  constexpr int RM = RQ > RP ? RQ : RP;
   extern __shared__ __align__(16) unsigned char smem[];
-  const AttnSmem L = attn_smem(sh, RM);
+  const AttnSmem L = attn_smem(sh, R);
   double* acc = reinterpret_cast<double*>(smem + L.acc);
   double* sbuf = reinterpret_cast<double*>(smem + L.sbuf);
   int2* phl = reinterpret_cast<int2*>(smem + L.sbuf);
@@ -257,11 +261,11 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(
 
     // ---- 1. Q K^T residues, one modulus at a time
 #pragma unroll 1
-    for (int j = 0; j < RQ; ++j) {
+    for (int j = 0; j < sh.rq; ++j) {
       const int mj = p.moduli[j];
       const int cw = Dp / 16;
-      const int8_t* qp = qres + ((int64_t)b * RQ + j) * S * Dp;
-      const int8_t* kp = kres + (((int64_t)b * RQ + j) * sh.Tq + t0) * Dp;
+      const int8_t* qp = qres + ((int64_t)b * sh.rq + j) * S * Dp;
+      const int8_t* kp = kres + (((int64_t)b * sh.rq + j) * sh.Tq + t0) * Dp;
       for (int idx = tid; idx < kAttnRows * cw; idx += kAttnThreads) {
         const int r = idx / cw, c = idx - r * cw, grow = row0 + r;
         int4 v = make_int4(0, 0, 0, 0);
@@ -296,7 +300,7 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(
     // ---- 2. Garner, unscale, scale, softcap, mask (_masked_scores)
     for (int e = tid; e < kAttnRows * bkv; e += kAttnThreads) {
       const int r = e / bkv, c = e - r * bkv;
-      const double s_int = reconstruct<RQ>(res + e, plane, p);
+      const double s_int = reconstruct<R>(res + e, plane, p, sh.rq);
       double s = ldexp_ref(s_int, -(sq_s[r] + sk_s[c]));
       s = s * sh.inv_sqrt_d;
       if (sh.softcap > 0.0) s = sh.softcap * tanh(s * sh.inv_cap);
@@ -369,7 +373,7 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(
 
     // ---- 4. P V residues, one modulus at a time
 #pragma unroll 1
-    for (int j = 0; j < RP; ++j) {
+    for (int j = 0; j < sh.rp; ++j) {
       const int mj = p.moduli[j];
       for (int idx = tid; idx < kAttnRows * bkvp; idx += kAttnThreads) {
         const int r = idx / bkvp, c = idx - r * bkvp;
@@ -380,7 +384,7 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(
         }
         stage_a[r * L.qsv + c] = (int8_t)v;
       }
-      const int8_t* vp = vres + ((int64_t)b * RP + j) * Dp * sh.Tq + t0;
+      const int8_t* vp = vres + ((int64_t)b * sh.rp + j) * Dp * sh.Tq + t0;
       const int cw = bkv / 8, cz = (bkvp - bkv) / 8;
       for (int idx = tid; idx < Dp * cw; idx += kAttnThreads) {
         const int d = idx / cw, c = idx - d * cw;
@@ -414,7 +418,7 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(
     // ---- 5. Garner, unscale, acc = acc * corr + pv
     for (int e = tid; e < kAttnRows * Dp; e += kAttnThreads) {
       const int r = e / Dp, d = e - r * Dp;
-      const double pv_int = reconstruct<RP>(res + e, plane, p);
+      const double pv_int = reconstruct<R>(res + e, plane, p, sh.rp);
       const double pv = ldexp_ref(pv_int, -(sp_s[r] + sv_s[d]));
       acc[e] = acc[e] * corr_s[r] + pv;
     }
@@ -447,18 +451,18 @@ inline cudaError_t launch_planes(int r, const int* hi, const int* lo, int B, int
   return cudaGetLastError();
 }
 
-template <int RQ, int RP>
+template <int R>
 cudaError_t launch_attention(const int8_t* qres, const int8_t* kres, const int8_t* vres,
                              const int* sq, const int* sk, const int* sv, const int8_t* mask,
                              double* out, const AttnShape& sh, const GarnerParams& p,
                              cudaStream_t s) {
-  const int bytes = attn_smem(sh, RQ > RP ? RQ : RP).total;
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<RQ, RP>,
+  const int bytes = attn_smem(sh, R).total;
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sh.S + sh.bq - 1) / sh.bq, sh.B);
-  attention_kernel<RQ, RP><<<grid, kAttnThreads, bytes, s>>>(qres, kres, vres, sq, sk, sv, mask,
-                                                             out, sh, p);
+  attention_kernel<R><<<grid, kAttnThreads, bytes, s>>>(qres, kres, vres, sq, sk, sv, mask, out,
+                                                        sh, p);
   return cudaGetLastError();
 }
 
@@ -502,18 +506,12 @@ extern "C" int ozaki_attention_fused(int device, const int* q_hi, const int* q_l
   err = ozaki::launch_planes(sh.rp, v_hi, v_lo, sh.B, sh.Tq, sh.D, sh.Dp, sh.Tq, 1, vres, s);
   if (err != cudaSuccess) return err;
   double* o = static_cast<double*>(out);
-  switch (sh.rp * 4 + (sh.rq - sh.rp + 1)) {
-#define OZAKI_ATTN(RP_, RQ_)                                                                  \
-  case (RP_) * 4 + ((RQ_) - (RP_) + 1):                                                       \
-    return ozaki::launch_attention<RQ_, RP_>(qres, kres, vres, sq, sk, sv, mask, o, sh, p, s);
-// (rp, rq) = (R, R), (R, R + 1) and (R + 1, R)
-#define OZAKI_CASE(R_) OZAKI_ATTN(R_, R_) OZAKI_ATTN(R_, R_ + 1) OZAKI_ATTN(R_ + 1, R_)
-    OZAKI_CASE(1) OZAKI_CASE(2) OZAKI_CASE(3) OZAKI_CASE(4) OZAKI_CASE(5) OZAKI_CASE(6)
-    OZAKI_CASE(7) OZAKI_CASE(8) OZAKI_CASE(9) OZAKI_CASE(10) OZAKI_CASE(11) OZAKI_CASE(12)
-    OZAKI_CASE(13) OZAKI_CASE(14) OZAKI_CASE(15) OZAKI_CASE(16) OZAKI_CASE(17) OZAKI_CASE(18)
-    OZAKI_CASE(19) OZAKI_ATTN(20, 20)
+  switch (p.r) {
+#define OZAKI_CASE(R_) \
+  case R_:             \
+    return ozaki::launch_attention<R_>(qres, kres, vres, sq, sk, sv, mask, o, sh, p, s);
+    OZAKI_FOR_EACH_R(OZAKI_CASE)
 #undef OZAKI_CASE
-#undef OZAKI_ATTN
     default: return cudaErrorInvalidValue;
   }
 }

@@ -270,7 +270,8 @@ def _attention_case(dev, B, S, T, D, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 37, 301, 80), (2, 1, 29, 128), (4, 70, 130, 16),
-                                   (1, 33, 8, 256), (5, 16, 128, 3)])
+                                   (1, 33, 8, 256), (5, 16, 128, 3),
+                                   (3, 10, 40, 1)])               # D = 1: rq 14 < rp 15
 @pytest.mark.parametrize("kind", ["causal", "window", "random"])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_cuda_attention_matches_plain_version(cuda_device, shape, kind, softcap):

@@ -162,6 +162,14 @@ def test_registry_init_and_unported_layers():
         Model(registry.get_config("yi-6b", smoke=True, pattern=(BlockCfg(mlp="moe"),)))
 
 
+@pytest.mark.parametrize("field", ["remat", "force_unroll", "ssm_chunk", "lstm_chunk",
+                                   "encoder_seq", "frontend"])
+def test_get_config_rejects_fields_the_port_does_not_read(field):
+    assert hasattr(jreg.get_config("yi-6b"), field)      # the reference's knob
+    with pytest.raises(TypeError):
+        registry.get_config("yi-6b", **{field: None})
+
+
 def test_serve_cli_on_the_host(capsys):
     serve_cli.main(["--smoke", "--device", "cpu", "--requests", "2", "--max-new", "3",
                     "--policy", "ozaki2_int8", "--compute-dtype", "float32"])

@@ -74,8 +74,8 @@ def test_emulated_matmul_batched_bitwise():
     a = RNG.standard_normal((2, 3, 8, 24))
     b = RNG.standard_normal((2, 3, 24, 6))
     jp = jo.make_plan(24)
-    got = to.emulated_matmul_batched(torch.from_numpy(a), torch.from_numpy(b),
-                                     convert.plan_from_fields(jp.moduli, jp.payload_bits))
+    got = to.emulated_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                             convert.plan_from_fields(jp.moduli, jp.payload_bits))
     want = jo.emulated_matmul_batched(jnp.asarray(a), jnp.asarray(b), jp)
     assert tuple(got.shape) == (2, 3, 8, 6)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
