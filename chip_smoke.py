@@ -36,12 +36,18 @@ Phases (each prints its results; any failed check makes the script exit 1):
          FP64 (<= 16u relative to sum|a| * max|x|); ``spmv_bell``'s kernel
          against its plain version there and on a ragged random matrix, in every
          output representation and at two row blocks; times beside
-         ``torch.sparse`` CSR f64 and the bound.
+         ``torch.sparse`` CSR f64 and the bound, beside PERF.md's earlier time,
+         and the device time of the kernel's launch by kernel (torch.profiler).
   cg_bell the SpMV's main path, launch count set to 0 just before and read just
          after: ``cg_solve_bell`` on HPCG's operator with b = A 1 (tol 1e-10);
          it converges (||Ax - b||/||b|| <= 1e-9, ||x - 1||inf <= 1e-6), the
          kernel launched iterations + 1 times, and the reference route's first
-         50 iterations give a bitwise-equal history.
+         50 iterations give a bitwise-equal history.  Then a solve of 0 and one
+         of 10 iterations, each under torch.profiler and timed by the host clock
+         and by CUDA events: their differences over 10 give an iteration's
+         device busy time, its host and stream times, and the device's idle
+         share against each (unclamped), and the busy time's split into the
+         port's kernels and PyTorch's.
   carry  ``carry_fold``, the in-order fold that ends every compensated dot and
          norm, runs on all three main paths (its count is set to 0 and read
          with the others': 2 per CG iteration + 2, sweeps + 2 per Jacobi
@@ -56,10 +62,14 @@ Phases (each prints its results; any failed check makes the script exit 1):
          phase's two cache lengths (32 with bkv 32, and 4096), and q
          rows and v columns at ~1e-300.  In each: the kernel route against the
          reference route (bitwise), the kernel against its plain version at
-         two bq (bitwise; the result must not depend on bq), and against a
-         native-FP64 softmax attention (<= 1e-12 * max|v| per column).  Times of
-         the kernel, its plain version, ``F.scaled_dot_product_attention`` f64
-         and the bound, at prefill and at both decode lengths.
+         two bq on every path of the kernel (the one-pass sweep, and where
+         S = 1 the row path the wrapper picks and the sweep forced; bitwise,
+         the result must depend on neither), and against
+         a native-FP64 softmax attention (<= 1e-12 * max|v| per column).  Times
+         of the kernel on each path, its plain version,
+         ``F.scaled_dot_product_attention`` f64 and the bound, and each path's
+         device time by kernel (torch.profiler), at causal prefill, the ragged
+         case and both decode lengths, beside PERF.md's earlier times.
   serve  yi-6b at its published widths and all 32 layers (d_model 4096, 32
          heads over 4 KV heads, head_dim 128, d_ff 11008, vocab 64000), policy
          ozaki2_int8, compute float32, random weights from a seeded generator
@@ -82,6 +92,7 @@ elements; NaN equals NaN, since the reference's ds representation is NaN from
 r = 16 on).  Times are CUDA-event medians after a warm-up.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -107,6 +118,13 @@ ATTN_D = 128             # yi-6b's head_dim
 SERVE_CTX = 32           # the batcher's cache length
 LONG_CTX = 4096          # yi-6b's pretraining context (arXiv:2403.04652)
 LONG_STEPS = 4           # decode steps against the full LONG_CTX cache
+
+# PERF.md section 6's earlier times (ms) of the two kernels this version
+# redesigned (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's.
+EARLIER_MS = {"spmv_bell HPCG 104^3": 2.254,
+              "attention_fused causal prefill 32 x 512 x 512": 3.923,
+              f"attention_fused decode 64 x 1 x {SERVE_CTX}": 0.172,
+              f"attention_fused decode 64 x 1 x {LONG_CTX}": 7.248}
 
 FAILURES = []
 CARRY_LAUNCHES = {}      # carry_fold launches on each main path
@@ -161,6 +179,43 @@ def bound(m, k, n, r):
     t_bytes = 8.0 * (m * k + k * n + m * n) / BYTES_PER_S
     t_ops = 2.0 * m * n * k * r / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_busy(prof, steps):
+    """Device time per step from a torch.profiler run on one stream: the sum of
+    the kernels' and copies' durations over `steps`, and that sum split into
+    the port's kernels, by name, and PyTorch's own kernels and copies."""
+    import torch
+
+    parts = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if not t or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"ozaki::(\w+)|(carry_fold)", e.key)
+        name = (m.group(1) or m.group(2)) if m else "torch's kernels and copies"
+        parts[name] = parts.get(name, 0.0) + t / 1000.0 / steps
+    return sum(parts.values()), sorted(parts.items(), key=lambda kv: -kv[1])
+
+
+def profiled(fn, steps):
+    """device_busy of `steps` calls of fn after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy(prof, steps)
+
+
+def parts_text(parts):
+    return "; ".join(f"{k} {t:.3f} ms" for k, t in parts)
 
 
 def byte_bound(nbytes):
@@ -350,6 +405,7 @@ def spmv_phases(dev, gen):
     csr = torch.sparse_csr_tensor(crow, a_col[nz].to(torch.int64), a_val[nz], (m, m))
     lib_err = float(((csr @ x - want).abs() / denom).max()) / U
     check(lib_err <= 16, f"spmv: torch.sparse CSR computes the same function ({lib_err:.3f} u)")
+    ragged_ms = time_ms(lambda: ozaki_spmv._launch(*ops_ragged, rplan, "f64", br), reps=10)
     t = {"ms": time_ms(lambda: ozaki_spmv._launch(*ops_hpcg, plan, "f64", br), reps=10),
          "plain_ms": time_ms(lambda: ozaki_spmv._contract_ref(*ops_hpcg, plan, "f64"), reps=3),
          "library_ms": time_ms(lambda: csr @ x, reps=10),
@@ -361,6 +417,14 @@ def spmv_phases(dev, gen):
           f"{t['plain_ms']:.3f} ms, torch.sparse CSR f64 {t['library_ms']:.3f} ms, bound "
           f"{byte_bound(nbytes):.4f} ms ({nbytes} B); with Phase 1 and the epilogue: "
           f"spmv_bell {t['wrapper_ms']:.3f} ms, spmv_bell_ref {t['wrapper_ref_ms']:.3f} ms",
+          flush=True)
+    earlier = EARLIER_MS["spmv_bell HPCG 104^3"]
+    print(f"spmv: spmv_bell at HPCG {HPCG_N}^3 {t['ms']:.3f} ms against PERF.md's earlier "
+          f"{earlier:.3f} ms ({earlier / t['ms']:.2f}x); at {rm}x{rn}, bw {rbw}: "
+          f"{ragged_ms:.3f} ms", flush=True)
+    busy, parts = profiled(lambda: ozaki_spmv._launch(*ops_hpcg, plan, "f64", br), 5)
+    print(f"spmv: device time of spmv_bell's _launch at HPCG {HPCG_N}^3 {busy:.3f} ms "
+          f"(torch.profiler): {parts_text(parts)} (torch's: the column-bounds check)",
           flush=True)
     del ops_hpcg, ops_ragged, csr, y_k, want
 
@@ -398,6 +462,38 @@ def spmv_phases(dev, gen):
           f"{t_k * 1e3 / max(res_k.iters, 1):.3f} ms/iteration, reference route "
           f"{t_r * 1e3 / max(res_r.iters, 1):.3f} ms/iteration (host clock, per iteration "
           f"incl. the first matvec)", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 10
+    window = {}
+    for n in (0, steps):               # the set-up alone, then the set-up and `steps`
+        for traced in (False, True):
+            torch.cuda.synchronize()
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                a.record()
+                cg.cg_solve_bell(a_val, a_col, b, tol=0.0, maxiter=n)
+                z.record()
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+            if traced:
+                busy, parts = device_busy(prof, 1)
+                window[n] = (busy, dict(parts), host_ms, a.elapsed_time(z))
+            else:
+                window[n, "untraced"] = host_ms
+    (b0, p0, h0, e0), (b1, p1, h1, e1) = window[0], window[steps]
+    busy, host, stream = (b1 - b0) / steps, (h1 - h0) / steps, (e1 - e0) / steps
+    untraced = (window[steps, "untraced"] - window[0, "untraced"]) / steps
+    parts = sorted(((k, (v - p0.get(k, 0.0)) / steps) for k, v in p1.items()),
+                   key=lambda kv: -kv[1])
+    print(f"cg_bell: per iteration, from a {steps}-iteration solve less a 0-iteration one, "
+          f"both under torch.profiler: device busy {busy:.3f} ms, host clock {host:.3f} ms, "
+          f"CUDA events {stream:.3f} ms; idle share {1 - busy / host:.1%} of the host time, "
+          f"{1 - busy / stream:.1%} of the stream time; busy time {parts_text(parts)}; "
+          f"host clock of the same pair without the profiler {untraced:.3f} ms",
+          flush=True)
     return {"name": "spmv_bell", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ozaki_spmv.cu",
             "replaces": "src/repro/kernels/ozaki_spmv.py:121",
@@ -526,13 +622,23 @@ def attention_phase(dev, gen):
         check(n_diff(y_k, y_r) == 0, f"attention: {name}, kernel vs reference route, "
               f"{n_diff(y_k, y_r)} of {y_k.numel()} elements differ")
         plain = oa.attention_ref(q, k, v, mask, pq, pp, softcap, bkv)
+        ops = oa._decompose(q, k, v, pq, pp, bkv)
         for b in sorted({bq, 8} if bq > 8 else {bq, 1}, reverse=True):
             got = oa.attention_fused(q, k, v, mask, pq, pp, softcap, bq=b, bkv=bkv)
             d = n_diff(got, plain)
             if name.startswith("causal"):
                 err_kp = max(err_kp, float((got - plain).abs().max()))
-            check(d == 0, f"attention: {name}, kernel vs plain version at bq {b}, {d} of "
-                  f"{got.numel()} elements differ")
+            path = oa.choose_path(S)
+            check(d == 0, f"attention: {name}, kernel vs plain version at bq {b} "
+                  f"({path} path), {d} of {got.numel()} elements differ")
+            for other in (oa.PATHS if S == 1 else ()):
+                if other != path:
+                    d = n_diff(oa._launch(*ops, mask, pq, pp, softcap, b, bkv, path=other),
+                               plain)
+                    check(d == 0, f"attention: {name}, kernel vs plain version at bq {b} "
+                          f"({other} path, forced), {d} of {got.numel()} elements differ")
+            del got
+        del ops
         want = native_attention(q, k, v, mask, softcap)
         err = float(((y_k - want).abs().amax(dim=1) / v.abs().amax(dim=1)).max())
         check(err <= 1e-12, f"attention: {name} vs native FP64 softmax attention, {err:.3e} "
@@ -541,7 +647,7 @@ def attention_phase(dev, gen):
             col = y_k[:, :, 5].abs()
             check(bool((col > 0).all()), f"attention: the 1e-300 columns come out at "
                   f"{float(col.min()):.3e} .. {float(col.max()):.3e}")
-        if name.startswith(("causal", "decode")):
+        if name.startswith(("causal", "decode", "ragged")):   # the timed shapes
             timed[name] = (q, k, v, mask, pq, pp, bq, bkv, want)
         del y_k, y_r, plain, want
     out = {}
@@ -549,7 +655,7 @@ def attention_phase(dev, gen):
         B, S, D = q.shape
         T = k.shape[1]
         ops = oa._decompose(q, k, v, pq, pp, bkv)
-        if S == T:
+        if S == T and name.startswith("causal"):
             sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
         else:
             keep = mask != 0
@@ -557,6 +663,10 @@ def attention_phase(dev, gen):
         lib_err = float(((sdpa() - want).abs().amax(dim=1) / v.abs().amax(dim=1)).max())
         check(lib_err <= 1e-12, f"attention: F.scaled_dot_product_attention computes the same "
               f"function at {name} ({lib_err:.3e})")
+        path = oa.choose_path(S)
+        others = {p: time_ms(lambda: oa._launch(*ops, mask, pq, pp, 0.0, bq, bkv, path=p),
+                             reps=5)
+                  for p in (oa.PATHS if S == 1 else ()) if p != path}
         t = {"ms": time_ms(lambda: oa._launch(*ops, mask, pq, pp, 0.0, bq, bkv), reps=10),
              "plain_ms": time_ms(lambda: oa.attention_ref(q, k, v, mask, pq, pp, 0.0, bkv),
                                  reps=3),
@@ -571,6 +681,17 @@ def attention_phase(dev, gen):
               f"{t['plain_ms']:.3f} ms, F.scaled_dot_product_attention f64 "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
               f"with Phase 1: attention_fused {t['wrapper_ms']:.3f} ms", flush=True)
+        for p in (path,) + tuple(others):
+            busy, parts = profiled(lambda: oa._launch(*ops, mask, pq, pp, 0.0, bq, bkv, path=p),
+                                   3)
+            print(f"attention: {name}: {p} path device time {busy:.3f} ms (torch.profiler): "
+                  f"{parts_text(parts)}", flush=True)
+        earlier = EARLIER_MS.get("attention_fused " + name.split(",")[0])
+        print(f"attention: {name}: the {path} path {t['ms']:.3f} ms"
+              + (f" against PERF.md's earlier {earlier:.3f} ms ({earlier / t['ms']:.2f}x)"
+                 if earlier else "")
+              + "".join(f"; here the {p} path {ms:.3f} ms" for p, ms in others.items()),
+              flush=True)
         out[name] = t
     del timed, cases
     t = out["causal prefill 32 x 512 x 512"]
@@ -997,6 +1118,10 @@ def main():
     ]
     print("kernels: " + ", ".join(f"{k['name']} {k['launches']} launches" for k in kernels)
           + f" on the main paths (gemm_hilo {GEMM_LAUNCHES})", flush=True)
+    names = ["gemm_hilo", "gemv_hilo", "stencil7", "spmv_bell", "carry_fold", "attention_fused"]
+    check([k["name"] for k in kernels] == names and
+          all(isinstance(k["launches"], int) and k["launches"] > 0 for k in kernels),
+          f"kernels: the line lists all {len(names)} kernels, each launched on a main path")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}", file=sys.stderr)
         return 1

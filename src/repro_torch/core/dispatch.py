@@ -146,17 +146,18 @@ def clear_plan_cache() -> None:
 # csrc/ozaki_gemv.cu: 8 rows per block, 32-byte K steps).  spmv_bell's br is
 # the rows (threads) per block of csrc/ozaki_spmv.cu; stencil7's block is bz
 # threads along z by by along y (csrc/ozaki_stencil.cu).  Neither changes a bit
-# of the result.  attention's bq is the q rows of a CUDA block
-# (csrc/ozaki_attention.cu: one 16-row MMA tile; the reference's 128 is a TPU
-# VMEM tile) and does not change the result; its bkv, the key block, is part of
-# the function (it sets plan_pv and p's scaling blocks) and stays the
-# reference's 128.
+# of the result.  attention's bq is the q rows of a tile of
+# csrc/ozaki_attention.cu (two 16-row MMA tiles at 32; at most 16 above
+# head_dim 128, where two do not fit a block's shared memory; the reference's
+# 128 is a TPU VMEM tile) and does not change the result; its bkv, the key
+# block, is part of the function (it sets plan_pv and p's scaling blocks) and
+# stays the reference's 128.
 TUNE_TABLE: Dict[Tuple[str, str], Dict[str, Any]] = {
     ("gemm", "*"): {"bm": 128, "bn": 128, "bk": 64},
     ("gemv", "*"): {"bm": 8, "bk": 32},
     ("spmv_bell", "*"): {"br": 128},
     ("stencil7", "*"): {"bz": 64, "by": 4},
-    ("attention", "*"): {"bq": 16, "bkv": 128},
+    ("attention", "*"): {"bq": 32, "bkv": 128},
     ("reduce", "*"): {"block": 512},
     # Kept from the reference's table (measured there on a CPU): >=64k-element
     # reductions take the shorter 256-lane block.
@@ -402,7 +403,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     one device.  ``plan_qk`` covers the length-D score contraction,
     ``plan_pv`` the length-bkv probability-value contraction; both resolve
     from the plan cache when omitted.  bq and bkv come from the tuning table,
-    rounded to ``SUBLANE`` and capped at S and T rounded up.
+    rounded to ``SUBLANE`` and capped at S and T rounded up (bq also at the
+    kernel's largest tile for D).
     """
     from repro_torch.kernels import ozaki_attention as _attn  # deferred: kernels import core
 
@@ -413,7 +415,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for d in lead:
         B *= int(d)
     tune = get_tuning("attention", (B, S, D, T))
-    bq = min(_round_up(int(tune["bq"]), SUBLANE), _round_up(S, SUBLANE))
+    bq = min(_round_up(int(tune["bq"]), SUBLANE), _round_up(S, SUBLANE), _attn.max_bq(D))
     bkv = min(_round_up(int(tune["bkv"]), SUBLANE), _round_up(T, SUBLANE))
     if plan_qk is None:
         plan_qk = get_plan(D, payload_bits, substrate)

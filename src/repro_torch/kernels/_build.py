@@ -41,13 +41,15 @@ ENTRY_POINTS = {
     "ozaki_gemv": ("ozaki_gemv_hilo", _PRODUCT),
     # (device, u_hi, u_lo, c_res, X, Y, Z, bz, by, out_rep, out, params, stream)
     "ozaki_stencil": ("ozaki_stencil_hilo", [_INT] + [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P] * 3),
-    # (device, a_hi, a_lo, cols, x_hi, x_lo, M, bw, br, out_rep, out, params, stream)
-    "ozaki_spmv": ("ozaki_spmv_hilo", [_INT] + [_VOID_P] * 5 + [_INT] * 4 + [_VOID_P] * 3),
+    # (device, a_hi, a_lo, cols, x_hi, x_lo, M, N, bw, br, out_rep, out, xres, params,
+    #  stream)
+    "ozaki_spmv": ("ozaki_spmv_hilo", [_INT] + [_VOID_P] * 5 + [_INT] * 5 + [_VOID_P] * 4),
     # (device, dtype_bytes, s_b, c_b, nb, lanes, out, stream)
     "carry_fold": ("carry_fold", [_INT] * 2 + [_VOID_P] * 2 + [_INT64] * 2 + [_VOID_P] * 2),
     # (device, q_hi, q_lo, k_hi, k_lo, v_hi, v_lo, sq, sk, sv, mask, out, qres, kres,
-    #  vres, shape, params, stream)
-    "ozaki_attention": ("ozaki_attention_fused", [_INT] + [_VOID_P] * 17),
+    #  vres, s_buf, pv_buf, stats, path, shape, params, stream)
+    "ozaki_attention": ("ozaki_attention_fused", [_INT] + [_VOID_P] * 17 + [_INT]
+                        + [_VOID_P] * 3),
 }
 
 

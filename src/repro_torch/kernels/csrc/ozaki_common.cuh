@@ -1,7 +1,8 @@
 // Device code shared by the Ozaki-II Hopper kernels (ozaki_gemm.cu, ozaki_gemv.cu,
-// ozaki_stencil.cu, ozaki_spmv.cu): the moduli, the launch-parameter block, the
-// balanced residues, the Garner digits and the output representations.  The
-// stages only the GEMM and GEMV run are in ozaki_product.cuh.
+// ozaki_stencil.cu, ozaki_spmv.cu, ozaki_attention.cu): the moduli, the
+// launch-parameter block, the balanced residues, the Garner digits, the output
+// representations and the cp.async wrappers.  The stages only the GEMM and GEMV
+// run are in ozaki_product.cuh.
 //
 // Every step repeats a plain torch function of repro_torch/kernels/common.py op
 // for op.  The build passes --fmad=false so that the Veltkamp two_prod and the
@@ -67,6 +68,14 @@ __device__ __forceinline__ int residue(int hi, int lo, int m) {
   return bmod(bmod(hi, m) * ((1 << kSplitBits) % m) + lo, m);
 }
 
+// Balanced residue of an int64 v: v = hi32 * 2^32 + lo32 with lo32 unsigned.
+__device__ __forceinline__ int bmod64(long long v, int m) {
+  const int hi = (int)(v >> 32);
+  const unsigned lo = (unsigned)v;
+  const int c32 = (int)((1ull << 32) % (unsigned long long)m);
+  return bmod(bmod(hi, m) * c32 + (int)(lo % (unsigned)m), m);
+}
+
 // Balanced mixed-radix digits from the balanced residues (common.garner_digits).
 template <int R>
 __device__ __forceinline__ void garner_digits(const int (&res)[R], const GarnerParams& p,
@@ -82,6 +91,155 @@ __device__ __forceinline__ void garner_digits(const int (&res)[R], const GarnerP
       carry[l] = bmod(carry[l] + t[j] * p.pref_mod[j][l], modulus(l));
     }
   }
+}
+
+// The same digits with the carries left unreduced: carry[l] sums at most 19
+// terms t_j * pref_mod[j][l] with |t_j| <= 128 and 0 <= pref_mod < 256, so it
+// stays below 2^20 and (res - carry) * inv_pref below 2^28.  Each digit is the
+// balanced residue of a value congruent to garner_digits' argument, and the
+// balanced residue is unique, so the digits are equal; one bmod per digit
+// instead of R(R+1)/2.
+template <int R>
+__device__ __forceinline__ void garner_digits_lazy(const int (&res)[R], const GarnerParams& p,
+                                                   int (&t)[R]) {
+  int carry[R];
+#pragma unroll
+  for (int l = 0; l < R; ++l) carry[l] = 0;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    t[j] = bmod((res[j] - carry[j]) * p.inv_pref[j], modulus(j));
+#pragma unroll
+    for (int l = j + 1; l < R; ++l) carry[l] += t[j] * p.pref_mod[j][l];
+  }
+}
+
+// A modulus whose index is known only at run time, with what a multiply-high
+// reduction needs; kModRT[j] is modulus(j)'s, built at compile time.
+struct ModRT {
+  int m, half_hi, half_lo;
+  unsigned magic, k31;  // floor(2^32 / m); 2^31 mod m
+  double inv;           // 1 / m, rounded
+};
+
+__host__ __device__ constexpr ModRT make_mod_rt(int m) {
+  return ModRT{m, (m - 1) / 2, -(m / 2), (unsigned)(0x100000000ull / (unsigned)m),
+               (1u << 31) % (unsigned)m, 1.0 / m};
+}
+
+static __constant__ ModRT kModRT[kMaxR] = {
+    make_mod_rt(modulus(0)),  make_mod_rt(modulus(1)),  make_mod_rt(modulus(2)),
+    make_mod_rt(modulus(3)),  make_mod_rt(modulus(4)),  make_mod_rt(modulus(5)),
+    make_mod_rt(modulus(6)),  make_mod_rt(modulus(7)),  make_mod_rt(modulus(8)),
+    make_mod_rt(modulus(9)),  make_mod_rt(modulus(10)), make_mod_rt(modulus(11)),
+    make_mod_rt(modulus(12)), make_mod_rt(modulus(13)), make_mod_rt(modulus(14)),
+    make_mod_rt(modulus(15)), make_mod_rt(modulus(16)), make_mod_rt(modulus(17)),
+    make_mod_rt(modulus(18)), make_mod_rt(modulus(19))};
+
+__device__ __forceinline__ ModRT mod_rt(int j) { return kModRT[j]; }
+
+// bmod(v, M.m) without a division: v + 2^31 as an unsigned u, whose quotient
+// estimate __umulhi(u, floor(2^32/m)) is floor(u/m) or one less, so one
+// conditional subtraction gives u mod m; minus 2^31 mod m puts t in (-m, m),
+// congruent to v, and bmod's fix-ups make it balanced.  Exact for every int32.
+__device__ __forceinline__ int bmod_rt(int v, const ModRT& M) {
+  const unsigned u = (unsigned)v ^ 0x80000000u;
+  unsigned r = u - __umulhi(u, M.magic) * (unsigned)M.m;
+  if (r >= (unsigned)M.m) r -= (unsigned)M.m;
+  int t = (int)r - (int)M.k31;
+  if (t > M.half_hi) {
+    t -= M.m;
+  } else if (t < M.half_lo) {
+    t += M.m;
+  }
+  return t;
+}
+
+// The balanced residue mod m of an integer-valued double z with |z| <= 2^53,
+// in FP64: q = rint(z / m) by adding and subtracting 1.5 * 2^52 (|z / m| <
+// 2^51), where z * fl(1/m) is within 2^53 / 151 * 2^-52 < 0.02 of z / m; then
+// r = z - q m is exact (one fma of an integer result) and lies within one of
+// the balanced range [-(m/2), (m-1)/2], read off the low word of r + 1.5 * 2^52
+// and fixed up as in bmod.  Five FP64 operations where bmod(hi) * c + lo and a
+// second bmod take ~20 integer ones, on another pipe.
+__device__ __forceinline__ int bmod_f64(double z, int m, double inv, int half_hi, int half_lo) {
+  const double kRound = 6755399441055744.0;  // 1.5 * 2^52
+  const double q = (z * inv + kRound) - kRound;
+  const double r = __fma_rn(-q, (double)m, z);
+  int t = __double2loint(r + kRound);
+  if (t > half_hi) {
+    t -= m;
+  } else if (t < half_lo) {
+    t += m;
+  }
+  return t;
+}
+
+// residue(hi, lo, m) through FP64 for any int32 hi and lo (converted once by the
+// caller): z = hi * (2^26 mod m) + lo is exact (|z| < 2^40) and congruent to
+// hi * 2^26 + lo.  m a compile-time constant after unrolling.
+__device__ __forceinline__ int residue_f64(double hi, double lo, int m) {
+  const double z = __fma_rn(hi, (double)((1 << kSplitBits) % m), lo);
+  return bmod_f64(z, m, 1.0 / m, (m - 1) / 2, -(m / 2));
+}
+
+// The residue table row of (hi, lo) pairs' integer x = hi * 2^26 + lo (or of an
+// integer-valued double): the balanced residues mod moduli 0 .. R-1 as int8,
+// four to a word, zero-padded to 4 * W words.
+template <int R, int W>
+__device__ __forceinline__ void residue_row(double hi, double lo, int (&w)[4 * W]) {
+#pragma unroll
+  for (int k = 0; k < 4 * W; ++k) w[k] = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) w[i / 4] |= (residue_f64(hi, lo, modulus(i)) & 0xff) << (8 * (i % 4));
+}
+
+// Sums of one row against a residue table (the SpMV's and single-row
+// attention's contraction): H[i] += hi * xr_i and L[i] += lo * xr_i, 32 x 32 ->
+// 64-bit multiply-adds, with xr_i the int8 residue i of a table row.  The
+// balanced residue of (2^26 mod m_i) * H[i] + L[i] is that of the sum of
+// residue products.
+template <int R, int W>
+__device__ __forceinline__ void accumulate_row(int hi, int lo, const int (&xw)[4 * W],
+                                               long long (&H)[R], long long (&L)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int xr = (int)(signed char)(xw[i / 4] >> (8 * (i % 4)));
+    H[i] += (long long)hi * xr;
+    L[i] += (long long)lo * xr;
+  }
+}
+
+// The balanced residues of the sums above.
+template <int R>
+__device__ __forceinline__ void fold_rows(const long long (&H)[R], const long long (&L)[R],
+                                          int (&res)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int m = modulus(i);
+    res[i] = bmod64(H[i] * ((1 << kSplitBits) % m) + L[i], m);
+  }
+}
+
+// cp.async: global -> shared copies that bypass registers; a thread waits for
+// its own groups, so a barrier must follow the wait before others read.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+// 16 bytes, of which the first src_bytes (0 or 16) are read and the rest zeroed.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Compensated double-double Horner over the digits (common.digits_to_f64).

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,11 +34,34 @@ from repro_torch.kernels.ozaki_gemm import check_cuda, check_plan
 # online-softmax state NaN-free for fully masked rows on both routes.
 NEG_INF = -1e30
 
-# Limits of csrc/ozaki_attention.cu: a block's tile is one 16-row MMA tile.
-MAX_BQ = 16
+# Limits of csrc/ozaki_attention.cu: a q tile is one or two 16-row MMA tiles;
+# above D = 128 two tiles' staging and residue planes do not fit a block's
+# shared memory, so bq <= 16 there.
+MAX_BQ = 32
+MAX_BQ_WIDE = 16
+WIDE_D = 128
 MAX_BKV = 128
 MAX_D = 256
 _MAX_PROBLEMS = 65535
+
+
+def max_bq(D: int) -> int:
+    """The largest q tile the kernel takes at head dimension D."""
+    return MAX_BQ if D <= WIDE_D else MAX_BQ_WIDE
+
+
+PATHS = ("sweep", "row")
+_PATH_CODES = {name: i for i, name in enumerate(PATHS)}
+
+
+def choose_path(S: int) -> str:
+    """The kernel's path over the key axis; both give the same bits.
+
+    ``row`` for one query row per problem (decode: the key axis split across
+    blocks, no residue planes of k and v, no MMA tile of 15 padding rows);
+    else the one-pass ``sweep`` over q tiles.
+    """
+    return "row" if S == 1 else "sweep"
 
 
 class AttnShape(ctypes.Structure):
@@ -165,13 +189,16 @@ def _decompose(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan_qk: ozaki
 
 def _launch(q_hi, q_lo, k_hi, k_lo, v_hi, v_lo, sq, sk, sv, mask: torch.Tensor,
             plan_qk: ozaki2.Plan, plan_pv: ozaki2.Plan, softcap: float, bq: int,
-            bkv: int) -> torch.Tensor:
-    """The CUDA kernel on the operands of ``_decompose``: float64 (B, S, D)."""
+            bkv: int, path: Optional[str] = None) -> torch.Tensor:
+    """The CUDA kernel on the operands of ``_decompose``: float64 (B, S, D).
+
+    ``path`` picks one of ``PATHS`` (None: ``choose_path``; ``row`` needs
+    S = 1); both give the same bits."""
     B, S, D = q_hi.shape
     T = k_hi.shape[1]
     tq = v_hi.shape[1]
-    if not 1 <= bq <= MAX_BQ:
-        raise ValueError(f"attention_fused: bq must be in 1..{MAX_BQ}, got {bq}")
+    if not 1 <= bq <= max_bq(D):
+        raise ValueError(f"attention_fused: bq must be in 1..{max_bq(D)} at D = {D}, got {bq}")
     if bkv % 8 or not 8 <= bkv <= MAX_BKV:
         raise ValueError(f"attention_fused: bkv must be a multiple of 8 in 8..{MAX_BKV}, "
                          f"got {bkv}")
@@ -188,26 +215,42 @@ def _launch(q_hi, q_lo, k_hi, k_lo, v_hi, v_lo, sq, sk, sv, mask: torch.Tensor,
         raise ValueError(f"attention_fused: mask must be int8 ({B}, {S}, {T}), got "
                          f"{mask.dtype} {tuple(mask.shape)}")
     dp = _round_up(D, 64)
+    nblk = tq // bkv
     dev = q_hi.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if path is None:
+        path = choose_path(S)
+    if path not in PATHS or (path == "row" and S != 1):
+        raise ValueError(f"attention_fused: path must be one of {PATHS} ('row' for S = 1), "
+                         f"got {path!r} at S = {S}")
     sh = AttnShape(B=B, S=S, T=T, D=D, Dp=dp, Tq=tq, bq=bq, bkv=bkv, bkvp=_round_up(bkv, 64),
-                   nblk=tq // bkv, rq=plan_qk.r, rp=plan_pv.r,
+                   nblk=nblk, rq=plan_qk.r, rp=plan_pv.r,
                    payload_pv=plan_pv.payload_bits, mask_sb=mask.stride(0),
                    mask_ss=mask.stride(1), mask_st=mask.stride(2),
                    inv_sqrt_d=1.0 / math.sqrt(D), softcap=float(softcap),
                    inv_cap=1.0 / softcap if softcap > 0 else 0.0,
                    two_pow_payload=2.0 ** plan_pv.payload_bits)
     out = torch.empty((B, S, D), dtype=torch.float64, device=dev)
-    qres = torch.empty((B, plan_qk.r, S, dp), dtype=torch.int8, device=dev)
-    kres = torch.empty((B, plan_qk.r, tq, dp), dtype=torch.int8, device=dev)
-    vres = torch.empty((B, plan_pv.r, dp, tq), dtype=torch.int8, device=dev)
+    # Scratch, one allocation each, carved by byte offsets (all multiples of 64):
+    # for the sweep the int8 residue planes of q (B, rq, S, Dp), k (B, rq, Tq, Dp)
+    # and v (B, rp, Dp, Tq); for the row path f64 scores (B, Tq), P V per block
+    # (B, nblk, D) and the block max and row sum (B, nblk, 2).
+    res, work = [None, None, None], [None, None, None]
+    if path == "sweep":
+        n_q, n_k = B * plan_qk.r * S * dp, B * plan_qk.r * tq * dp
+        planes = torch.empty(n_q + n_k + B * plan_pv.r * dp * tq, dtype=torch.int8, device=dev)
+        res = [planes.data_ptr() + off for off in (0, n_q, n_q + n_k)]
+    else:
+        n_s, n_pv = B * tq, B * nblk * D
+        buf = torch.empty(n_s + n_pv + 2 * B * nblk, dtype=torch.float64, device=dev)
+        work = [buf.data_ptr() + 8 * off for off in (0, n_s, n_s + n_pv)]
     params = _build.garner_params(plan_qk if plan_qk.r > plan_pv.r else plan_pv)
     lib = _build.library("ozaki_attention")
     err = lib.ozaki_attention_fused(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        q_hi.data_ptr(), q_lo.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(), v_hi.data_ptr(),
-        v_lo.data_ptr(), sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), qres.data_ptr(), kres.data_ptr(), vres.data_ptr(),
-        ctypes.addressof(sh), ctypes.addressof(params), torch.cuda.current_stream(dev).cuda_stream)
+        index, q_hi.data_ptr(), q_lo.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(),
+        v_hi.data_ptr(), v_lo.data_ptr(), sq.data_ptr(), sk.data_ptr(), sv.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), *res, *work, _PATH_CODES[path], ctypes.addressof(sh),
+        ctypes.addressof(params), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_fused: CUDA launch failed with error {err}")
     return out
@@ -221,9 +264,10 @@ def attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
     q: (B, S, D), k/v: (B, T, D), mask: (B, S, T) (nonzero = attend), one
     problem per leading index; returns float64 (B, S, D).  CPU tensors take
     the plain version; CUDA tensors launch the kernel, one launch for all B
-    problems with blocks of ``bq`` q rows (``dispatch.attention`` takes bq
+    problems with q tiles of ``bq`` rows (``dispatch.attention`` takes bq
     and bkv from the tuning table), or raise.  The result does not depend on
-    ``bq``; ``bkv`` is part of the function (it sets p's scaling blocks).
+    ``bq``, nor on the kernel's path over the key axis (``choose_path``);
+    ``bkv`` is part of the function (it sets p's scaling blocks).
     """
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape or q.shape[0] != k.shape[0] \
             or q.shape[2] != k.shape[2] or tuple(mask.shape) != (q.shape[0], q.shape[1],

@@ -25,6 +25,12 @@ from repro_torch.kernels.ozaki_stencil import _global_scale_to_int
 MAX_BLOCK_ROWS = 256  # rows (threads) per block of csrc/ozaki_spmv.cu
 
 
+def table_width(r: int) -> int:
+    """Bytes per x_j of the kernel's residue table: r int8 residues, zero-padded
+    to 16 (to 32 from r = 17 on)."""
+    return 16 * -(-r // 16)
+
+
 def _decompose_operands(a_val: torch.Tensor, a_col: torch.Tensor, x: torch.Tensor,
                         plan: ozaki2.Plan):
     """Phase 1 of the kernel and of its plain version: per-row scaling of
@@ -97,11 +103,12 @@ def _launch(av_hi: torch.Tensor, av_lo: torch.Tensor, cols: torch.Tensor,
     shape, dtype = out_shape(out_rep, plan.r, M)
     dev = av_hi.device
     out = torch.empty(shape, dtype=dtype, device=dev)
+    xres = torch.empty((n, table_width(plan.r)), dtype=torch.int8, device=dev)
     lib = _build.library("ozaki_spmv")
     err = lib.ozaki_spmv_hilo(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         av_hi.data_ptr(), av_lo.data_ptr(), cols.data_ptr(), x_hi.data_ptr(),
-        x_lo.data_ptr(), M, bw, br, OUT_CODES[out_rep], out.data_ptr(),
+        x_lo.data_ptr(), M, n, bw, br, OUT_CODES[out_rep], out.data_ptr(), xres.data_ptr(),
         ctypes.addressof(_build.garner_params(plan)), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmv_bell: CUDA launch failed with error {err}")

@@ -306,7 +306,7 @@ def test_cuda_attention_raises_on_bad_input(cuda_device):
     q, k, v, mask = _attention_case(cuda_device, 2, 9, 20, 16, "causal")
     pq, pp = dispatch.get_plan(16), dispatch.get_plan(24)
     with pytest.raises(ValueError):
-        ozaki_attention.attention_fused(q, k, v, mask, pq, pp, bq=17, bkv=24)
+        ozaki_attention.attention_fused(q, k, v, mask, pq, pp, bq=33, bkv=24)
     with pytest.raises(ValueError):
         ozaki_attention.attention_fused(q, k, v, mask, pq, pp, bq=16, bkv=20)   # bkv % 8
     with pytest.raises(TypeError):
@@ -323,6 +323,89 @@ def test_cuda_attention_raises_on_bad_input(cuda_device):
     with pytest.raises(ValueError):                               # not a DEFAULT_MODULI prefix
         ozaki_attention.attention_fused(q, k, v, mask, ozaki2.Plan((251, 241), 20), pp, bq=16,
                                         bkv=24)
+
+
+def _ring(dev, B, T, lo, hi):
+    """Decode masks: (B, 1, T) with keys lo .. hi - 1 real."""
+    m = torch.zeros((B, 1, T), dtype=torch.int8, device=dev)
+    m[:, :, lo:hi] = 1
+    return m
+
+
+ATTN_PATH_CASES = {
+    # name: (B, S, T, D, mask)
+    "decode 64 x 1 x 32": (64, 1, 32, 128, "ring"),
+    "decode 64 x 1 x 4096": (64, 1, 4096, 128, "ring"),
+    "decode, T not a multiple of bkv": (5, 1, 1000, 64, "ring"),
+    "decode, real keys in the last block only": (4, 1, 700, 128, "last block"),
+    "causal prefill": (3, 200, 200, 128, "causal"),
+    "window prefill": (2, 150, 300, 80, "window"),
+    "ragged prefill": (3, 37, 301, 80, "random"),
+    "wide head": (2, 40, 260, 256, "causal"),
+    "decode, odd head_dim": (3, 1, 300, 37, "ring"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ATTN_PATH_CASES))
+def test_cuda_attention_paths_match_plain_version(cuda_device, name):
+    """Both paths over the key axis (the one-pass sweep, and the row path where
+    S = 1), at every tile size, against the plain version; the wrapper's own
+    choice too.  Above S = 1 the row path also takes each query row as its own
+    problem, which gives it the prefill masks' rows."""
+    B, S, T, D, kind = ATTN_PATH_CASES[name]
+    if kind in ("causal", "window", "random"):
+        q, k, v, mask = _attention_case(cuda_device, B, S, T, D, kind)
+    else:
+        q, k, v = _randn(cuda_device, B, S, D), _randn(cuda_device, B, T, D), \
+            _randn(cuda_device, B, T, D)
+        mask = _ring(cuda_device, B, T, 0, T - 2) if kind == "ring" else \
+            _ring(cuda_device, B, T, T - 50, T - 3)
+    bkv = min(128, -(-T // 8) * 8)
+    pq, pp = dispatch.get_plan(D), dispatch.get_plan(bkv)
+    want = ozaki_attention.attention_ref(q, k, v, mask, pq, pp, 0.0, bkv)
+    ops = ozaki_attention._decompose(q, k, v, pq, pp, bkv)
+    for bq in sorted({ozaki_attention.max_bq(D), 16, 8, 5}):
+        for path in ozaki_attention.PATHS if S == 1 else ("sweep",):
+            got = ozaki_attention._launch(*ops, mask, pq, pp, 0.0, bq, bkv, path=path)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if S > 1:
+        with pytest.raises(ValueError):
+            ozaki_attention._launch(*ops, mask, pq, pp, 0.0, 8, bkv, path="row")
+        rows = [x[:, None].expand(B, S, T, D).reshape(B * S, T, D) for x in (k, v)]
+        row_ops = ozaki_attention._decompose(q.reshape(B * S, 1, D), *rows, pq, pp, bkv)
+        got = ozaki_attention._launch(*row_ops, mask.reshape(B * S, 1, T), pq, pp, 0.0, 1, bkv,
+                                      path="row")
+        torch.testing.assert_close(got, want.reshape(B * S, 1, D), rtol=0, atol=0)
+    before = ozaki_attention.attention_fused.launches
+    got = ozaki_attention.attention_fused(q, k, v, mask, pq, pp, bq=8, bkv=bkv)
+    assert ozaki_attention.attention_fused.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_wide_head_takes_16_row_tiles(cuda_device):
+    q, k, v, mask = _attention_case(cuda_device, 1, 20, 40, 256, "causal")
+    pq, pp = dispatch.get_plan(256), dispatch.get_plan(40)
+    with pytest.raises(ValueError):
+        ozaki_attention.attention_fused(q, k, v, mask, pq, pp, bq=32, bkv=40)
+    torch.testing.assert_close(dispatch.attention(q, k, v, mask=mask),
+                               dispatch.attention(q, k, v, mask=mask, mode="ref"), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw", [2, 16, 17, 32, 33, 64])
+@pytest.mark.parametrize("br", [32, 96, 200])
+def test_cuda_spmv_odd_and_even_widths(cuda_device, bw, br):
+    """The staged walk at even and odd bw, one and several 16-slot segments,
+    M not a multiple of the block or of a warp."""
+    val, col, x = _random_bell(cuda_device, 1013, 700, bw)
+    plan = dispatch.get_plan(bw, margin_bits=4)
+    for out_rep in ("f64", "digits"):
+        got = ozaki_spmv.spmv_bell(val, col, x, plan, out_rep, br=br)
+        torch.testing.assert_close(got, ozaki_spmv.spmv_bell_ref(val, col, x, plan, out_rep),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.cuda

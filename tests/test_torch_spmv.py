@@ -22,9 +22,10 @@ from repro.core import dispatch as jd  # noqa: E402
 from repro.hpc import cg as jcg, spmv_formats as jsf  # noqa: E402
 from repro.kernels import common as jc, ops as jops, ozaki_spmv as jsp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.core import dispatch  # noqa: E402
+from repro_torch.core import dispatch, ozaki2  # noqa: E402
+from repro_torch.core.moduli import DEFAULT_MODULI  # noqa: E402
 from repro_torch.hpc import cg, spmv_formats  # noqa: E402
-from repro_torch.kernels import ops, ozaki_spmv, ref  # noqa: E402
+from repro_torch.kernels import common, ops, ozaki_spmv, ref  # noqa: E402
 
 RNG = np.random.default_rng(29)
 U = 2.0 ** -53
@@ -161,6 +162,108 @@ def test_spmv_long_rows_exact():
     y = ozaki_spmv.spmv_bell_ref(*_t(val, col, x), plan).numpy()
     exact = float(Fraction(bw) * Fraction(v) ** 2)    # correctly rounded
     np.testing.assert_array_equal(y, np.full(2, exact))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's integer order (csrc/ozaki_spmv.cu), transcribed in torch
+# ---------------------------------------------------------------------------
+
+def _bmod64(v, m):
+    """The kernel's bmod64: v = hi32 * 2^32 + lo32 (lo32 unsigned), reduced as
+    bmod(bmod(hi32) * (2^32 mod m) + lo32 mod m)."""
+    hi, lo = v >> 32, v & 0xFFFFFFFF
+    return common.balanced_mod(common.balanced_mod(hi, m) * ((1 << 32) % m) + lo % m, m)
+
+
+def _garner_digits_lazy(accs, plan):
+    """garner_digits_lazy (csrc/ozaki_common.cuh): the carries summed unreduced."""
+    gc, ms = plan.garner, plan.moduli
+    carry = [torch.zeros_like(accs[0]) for _ in ms]
+    digits = []
+    for j, m in enumerate(ms):
+        t = common.balanced_mod((accs[j] - carry[j]) * int(gc.inv_pref[j]), m)
+        digits.append(t)
+        for l in range(j + 1, len(ms)):
+            carry[l] = carry[l] + t * int(gc.pref_mod[j, l])
+    return digits
+
+
+def _contract_by_table(av_hi, av_lo, cols, x_hi, x_lo, plan, out_rep, fold_every=1 << 16):
+    """The kernel in torch: x's residue table, then per modulus the int64 sums
+    H = sum hi * xr and L = sum lo * xr over the row, folded every
+    ``fold_every`` slots into L = the balanced residue of (2^26 mod m) H + L,
+    the same fold at the row's end, then the lazy-carry Garner digits."""
+    table = torch.stack([common.residue(x_hi, x_lo, m) for m in plan.moduli], dim=-1)
+    table = table.to(torch.int8).to(torch.int64)            # one int8 row per x_j
+    xr = table[cols.to(torch.int64)]                        # (M, bw, r) gathered rows
+    hi, lo = av_hi.to(torch.int64), av_lo.to(torch.int64)
+    M, bw = av_hi.shape
+    accs = []
+    for i, m in enumerate(plan.moduli):
+        c26 = (1 << 26) % m
+        H = torch.zeros(M, dtype=torch.int64)
+        L = torch.zeros(M, dtype=torch.int64)
+        for s0 in range(0, bw, fold_every):
+            blk = slice(s0, s0 + fold_every)
+            H = H + (hi[:, blk] * xr[:, blk, i]).sum(dim=-1)
+            L = L + (lo[:, blk] * xr[:, blk, i]).sum(dim=-1)
+            if s0 + fold_every < bw:
+                L, H = _bmod64(H * c26 + L, m), torch.zeros_like(H)
+        accs.append(_bmod64(H * c26 + L, m).to(torch.int32))
+    return common.represent(_garner_digits_lazy(accs, plan), plan, out_rep)
+
+
+@pytest.mark.parametrize("mnbw", [(50, 64, 8), (37, 45, 27), (300, 200, 16), (20, 9, 33)])
+@pytest.mark.parametrize("fold_every", [1 << 16, 16, 5])
+def test_kernel_integer_order_equals_plain_version(mnbw, fold_every):
+    """The residue table and the int64 (H, L) sums, folded at any interval, give
+    the plain version's bits, which repro's reference gives too."""
+    m, n, bw = mnbw
+    val, col, x = _random_bell(m, n, bw)
+    tp = dispatch.get_plan(bw, margin_bits=4)
+    ops_ = ozaki_spmv._decompose_operands(*_t(val, col, x), tp)[:5]
+    for rep in ("f64", "digits"):
+        got = _contract_by_table(*ops_, tp, rep, fold_every)
+        torch.testing.assert_close(got, ozaki_spmv._contract_ref(*ops_, tp, rep), rtol=0, atol=0)
+    y = ozaki_spmv._finish(_contract_by_table(*ops_, tp, "f64", fold_every), tp, "f64",
+                           *ozaki_spmv._decompose_operands(*_t(val, col, x), tp)[5:])
+    want = jsp.spmv_bell_ref(jnp.asarray(val), jnp.asarray(col), jnp.asarray(x),
+                             jd.get_plan(bw, margin_bits=4))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(want))
+
+
+def test_kernel_integer_order_on_long_rows():
+    """Rows of 2^17 + 64 slots at the largest |hi * xr|: the kernel's fold every
+    2^16 slots keeps the int64 sums exact, and the result is the exact product."""
+    bw = (1 << 17) + 64
+    v = 1.0 + 2.0 ** -45
+    val, col, x = np.full((2, bw), v), RNG.integers(0, 5, (2, bw)).astype(np.int32), np.full(5, v)
+    plan = dispatch.get_plan(bw, margin_bits=4)
+    ops_ = ozaki_spmv._decompose_operands(*_t(val, col, x), plan)
+    got = _contract_by_table(*ops_[:5], plan, "f64")
+    torch.testing.assert_close(got, ozaki_spmv._contract_ref(*ops_[:5], plan, "f64"), rtol=0,
+                               atol=0)
+    y = ozaki_spmv._finish(got, plan, "f64", *ops_[5:]).numpy()
+    np.testing.assert_array_equal(y, np.full(2, float(Fraction(bw) * Fraction(v) ** 2)))
+
+
+def test_lazy_garner_digits_and_bmod64_are_exact():
+    """Over random residues, the lazy-carry digits equal garner_digits', and
+    bmod64 equals the balanced residue of any int64 within the kernel's range."""
+    for r in (2, 15, 20):
+        plan = ozaki2.Plan(moduli=DEFAULT_MODULI[:r], payload_bits=53)
+        accs = [torch.from_numpy(RNG.integers(-(m // 2), (m - 1) // 2 + 1, 4000)
+                                 .astype(np.int32)) for m in plan.moduli]
+        for g, w in zip(_garner_digits_lazy(accs, plan), common.garner_digits(accs, plan)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    v = torch.from_numpy(np.concatenate([RNG.integers(-2 ** 62, 2 ** 62, 20000),
+                                         [0, -1, 2 ** 62, -2 ** 62, 2 ** 32, -2 ** 32]]))
+    for m in DEFAULT_MODULI:
+        torch.testing.assert_close(_bmod64(v, m), common.balanced_mod(v, m), rtol=0, atol=0)
+
+
+def test_residue_table_width():
+    assert [ozaki_spmv.table_width(r) for r in (1, 15, 16, 17, 20)] == [16, 16, 16, 32, 32]
 
 
 def test_wrappers_validate():
