@@ -13,9 +13,12 @@ Phases (each prints its results; any failed check makes the script exit 1):
          which is the kernel route for CUDA tensors.
   gemm   the DGEMM against the reference route (bitwise) and against native
          FP64 (<= 16 u componentwise relative to |A||B|, one row at ~1e-300);
-         ``gemm_hilo`` against its plain version at the main-path shape; times.
+         ``gemm_hilo`` against its plain version at the main-path shape; times
+         beside the bound, ``torch.matmul`` f64 and PERF.md's earlier time, and
+         the device time of its four stages (residues of A, of B, the wgmma
+         product, Garner; torch.profiler).
   gemv   the same at 8192 x 8192 with n in {1, 8, 16}; ``gemv_hilo`` timed at
-         n = 1, the CG matvec.
+         each n (n = 1 is the CG matvec), with its two kernels' device times.
   ragged two ragged shapes through the seam, and both kernels against their
          plain versions in every output representation (f64, digits, ds).
   cg     the same solve on the reference route: both converge, their
@@ -119,9 +122,11 @@ SERVE_CTX = 32           # the batcher's cache length
 LONG_CTX = 4096          # yi-6b's pretraining context (arXiv:2403.04652)
 LONG_STEPS = 4           # decode steps against the full LONG_CTX cache
 
-# PERF.md section 6's earlier times (ms) of the two kernels this version
-# redesigned (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's.
-EARLIER_MS = {"spmv_bell HPCG 104^3": 2.254,
+# PERF.md section 6's times (ms) of each redesigned kernel before its redesign
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's.
+EARLIER_MS = {"gemm_hilo 8192^3": 84.360,
+              "gemv_hilo n=1": 1.482, "gemv_hilo n=8": 2.329, "gemv_hilo n=16": 3.130,
+              "spmv_bell HPCG 104^3": 2.254,
               "attention_fused causal prefill 32 x 512 x 512": 3.923,
               f"attention_fused decode 64 x 1 x {SERVE_CTX}": 0.172,
               f"attention_fused decode 64 x 1 x {LONG_CTX}": 7.248}
@@ -1001,9 +1006,15 @@ def main():
     gemm_lib_ms = time_ms(lambda: torch.matmul(a, b), reps=5)
     seam_k_ms = time_ms(lambda: dispatch.matmul(a, b), reps=3)
     seam_r_ms = time_ms(lambda: dispatch.matmul(a, b, mode="ref"), reps=3)
-    print(f"gemm: gemm_hilo {gemm_ms:.3f} ms, plain {gemm_plain_ms:.3f} ms, "
-          f"torch.matmul f64 {gemm_lib_ms:.3f} ms; dispatch.matmul kernel route "
-          f"{seam_k_ms:.3f} ms, reference route {seam_r_ms:.3f} ms", flush=True)
+    g_bound, g_by = bound(N, N, N, plan.r)
+    earlier = EARLIER_MS[f"gemm_hilo {N}^3"]
+    print(f"gemm: gemm_hilo {gemm_ms:.3f} ms (PERF.md's earlier {earlier:.3f} ms, "
+          f"{earlier / gemm_ms:.2f}x), bound {g_bound:.3f} ms ({g_by}), plain "
+          f"{gemm_plain_ms:.3f} ms, torch.matmul f64 {gemm_lib_ms:.3f} ms; dispatch.matmul "
+          f"kernel route {seam_k_ms:.3f} ms, reference route {seam_r_ms:.3f} ms", flush=True)
+    busy, parts = profiled(lambda: ozaki_gemm.gemm_hilo(ah, al, bh, bl, plan), 2)
+    print(f"gemm: device time of gemm_hilo at {N}^3 by stage {busy:.3f} ms (torch.profiler): "
+          f"{parts_text(parts)}", flush=True)
     del ah, al, bh, bl, c_main
 
     # ----------------------------------------------------------------- gemv
@@ -1030,9 +1041,15 @@ def main():
              "seam_ms": time_ms(lambda: dispatch.matmul(a, x), reps=5),
              "seam_ref_ms": time_ms(lambda: dispatch.matmul(a, x, mode="ref"), reps=3)}
         gemv[n] = t
-        print(f"gemv: n={n} gemv_hilo {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
-              f"torch.matmul f64 {t['library_ms']:.3f} ms; dispatch.matmul kernel route "
-              f"{t['seam_ms']:.3f} ms, reference route {t['seam_ref_ms']:.3f} ms", flush=True)
+        earlier = EARLIER_MS[f"gemv_hilo n={n}"]
+        print(f"gemv: n={n} gemv_hilo {t['ms']:.3f} ms (PERF.md's earlier {earlier:.3f} ms, "
+              f"{earlier / t['ms']:.2f}x), bound {bound(N, N, n, plan.r)[0]:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, torch.matmul f64 {t['library_ms']:.3f} ms; "
+              f"dispatch.matmul kernel route {t['seam_ms']:.3f} ms, reference route "
+              f"{t['seam_ref_ms']:.3f} ms", flush=True)
+        busy, parts = profiled(lambda: ozaki_gemv.gemv_hilo(ah, al, xh, xl, plan), 5)
+        print(f"gemv: n={n} device time by kernel {busy:.3f} ms (torch.profiler): "
+              f"{parts_text(parts)}", flush=True)
         del ah, al, xh, xl, k_out, p_out
     del a, b
 
@@ -1099,7 +1116,6 @@ def main():
     GEMM_LAUNCHES["serve"] = serve_launches["gemm_hilo"]
 
     # -------------------------------------------------------------- summary
-    g_bound, g_by = bound(N, N, N, plan.r)
     v_bound, v_by = bound(N, N, 1, plan.r)
     kernels = [
         {"name": "gemm_hilo", "route": "cuda",

@@ -142,8 +142,8 @@ def clear_plan_cache() -> None:
 
 # "*" is the per-kind wildcard; specific shape classes (``shape_class``)
 # override it.  gemm/gemv entries are the padding granules of the Hopper
-# kernels (csrc/ozaki_gemm.cu: 128 x 128 output tiles, 64-deep K steps;
-# csrc/ozaki_gemv.cu: 8 rows per block, 32-byte K steps).  spmv_bell's br is
+# kernels (csrc/ozaki_gemm.cu: 128-row tiles, N in halves of its 256-column
+# tile, K in 64; csrc/ozaki_gemv.cu: 8 rows per warp, 32-deep K steps).  spmv_bell's br is
 # the rows (threads) per block of csrc/ozaki_spmv.cu; stencil7's block is bz
 # threads along z by by along y (csrc/ozaki_stencil.cu).  Neither changes a bit
 # of the result.  attention's bq is the q rows of a tile of

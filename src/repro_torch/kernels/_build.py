@@ -33,12 +33,13 @@ MAX_R = 20  # ozaki::kMaxR
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
 _INT64 = ctypes.c_int64
-# (device, a_hi, a_lo, b_hi, b_lo, d0, d1, d2, out_rep, out, s0, s1, s2, params, stream)
-_PRODUCT = [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 6
 # Each source's C entry point: its name and argument types.
 ENTRY_POINTS = {
-    "ozaki_gemm": ("ozaki_gemm_hilo", _PRODUCT),
-    "ozaki_gemv": ("ozaki_gemv_hilo", _PRODUCT),
+    # (device, a_hi, a_lo, b_hi, b_lo, M, N, K, out_rep, out, ares, bres, cres, params,
+    #  stream)
+    "ozaki_gemm": ("ozaki_gemm_hilo", [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 6),
+    # (device, a_hi, a_lo, x_hi, x_lo, M, K, B, out_rep, out, xres, params, stream)
+    "ozaki_gemv": ("ozaki_gemv_hilo", [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 4),
     # (device, u_hi, u_lo, c_res, X, Y, Z, bz, by, out_rep, out, params, stream)
     "ozaki_stencil": ("ozaki_stencil_hilo", [_INT] + [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P] * 3),
     # (device, a_hi, a_lo, cols, x_hi, x_lo, M, N, bw, br, out_rep, out, xres, params,

@@ -1,8 +1,8 @@
 // Device code shared by the Ozaki-II Hopper kernels (ozaki_gemm.cu, ozaki_gemv.cu,
 // ozaki_stencil.cu, ozaki_spmv.cu, ozaki_attention.cu): the moduli, the
 // launch-parameter block, the balanced residues, the Garner digits, the output
-// representations and the cp.async wrappers.  The stages only the GEMM and GEMV
-// run are in ozaki_product.cuh.
+// representations and the cp.async wrappers.  The stages only the GEMM runs
+// are in ozaki_product.cuh.
 //
 // Every step repeats a plain torch function of repro_torch/kernels/common.py op
 // for op.  The build passes --fmad=false so that the Veltkamp two_prod and the
@@ -154,6 +154,14 @@ __device__ __forceinline__ int bmod_rt(int v, const ModRT& M) {
   return t;
 }
 
+// (v + 2^31) mod M.m in [0, m) for any int32 v: bmod_rt without its balancing,
+// half its operations.  v is congruent to the result minus 2^31 mod m (M.k31).
+__device__ __forceinline__ unsigned umod_rt(int v, const ModRT& M) {
+  const unsigned u = (unsigned)v ^ 0x80000000u;
+  const unsigned r = u - __umulhi(u, M.magic) * (unsigned)M.m;
+  return r >= (unsigned)M.m ? r - (unsigned)M.m : r;
+}
+
 // The balanced residue mod m of an integer-valued double z with |z| <= 2^53,
 // in FP64: q = rint(z / m) by adding and subtracting 1.5 * 2^52 (|z / m| <
 // 2^51), where z * fl(1/m) is within 2^53 / 151 * 2^-52 < 0.02 of z / m; then
@@ -180,6 +188,30 @@ __device__ __forceinline__ int bmod_f64(double z, int m, double inv, int half_hi
 __device__ __forceinline__ int residue_f64(double hi, double lo, int m) {
   const double z = __fma_rn(hi, (double)((1 << kSplitBits) % m), lo);
   return bmod_f64(z, m, 1.0 / m, (m - 1) / 2, -(m / 2));
+}
+
+// residue(hi, lo, m) for any int32 hi and lo, given also as doubles, with m a
+// compile-time constant after unrolling: three FP64 and two integer operations,
+// and no fix-up.  z = hi (2^26 mod m) + lo is exact in FP64 (|z| < 2^40) and
+// congruent to hi 2^26 + lo.  y = z * fl(1/m) lies within 2^-19 of z / m, and
+// for an odd m, z / m lies at least 1/(2m) > 2^-9 from a half-integer, so q =
+// rint(y), read as the low word of y + 1.5 * 2^52 (q mod 2^32), is the nearest
+// integer to z / m and z - q m is the balanced residue itself; it is small, so
+// the int32 wrap-around of z's low word, hi (2^26 mod m) + lo, minus q m gives
+// it exactly.  For m = 256 (the one even modulus) it is the signed low byte of
+// lo: 2^26 is a multiple of 256, and the balanced range [-128, 127] is int8's.
+__device__ __forceinline__ int residue_hilo(int hi, int lo, double hd, double ld, int m) {
+  if (m == 256) return (int)(signed char)lo;
+  const unsigned c = (1u << kSplitBits) % (unsigned)m;
+  const double y = __fma_rn(hd, (double)c, ld) * (1.0 / m);
+  const unsigned q = (unsigned)__double2loint(y + 6755399441055744.0);
+  return (int)((unsigned)hi * c + (unsigned)lo - q * (unsigned)m);
+}
+
+// The low bytes of v0 .. v3 as one word, byte j from v_j (int8 residues packed
+// for an int8 MMA operand or a plane store).
+__device__ __forceinline__ unsigned pack4(int v0, int v1, int v2, int v3) {
+  return __byte_perm(__byte_perm(v0, v1, 0x0040), __byte_perm(v2, v3, 0x0040), 0x5410);
 }
 
 // The residue table row of (hi, lo) pairs' integer x = hi * 2^26 + lo (or of an

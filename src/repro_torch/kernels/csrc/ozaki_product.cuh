@@ -1,23 +1,26 @@
-// The stages of the Ozaki-II products (ozaki_gemm.cu, ozaki_gemv.cu).
+// The residue and Garner stages of the Ozaki-II GEMM (ozaki_gemm.cu).
 //
-// Both kernels run the same three stages as the TPU kernels' single grid:
+// The GEMM runs three stages where the TPU kernel runs one grid:
 //   1. residues: (hi, lo) int32 operands -> balanced int8 residue planes, one per
 //      modulus (residues_rows for the left operand, residues_cols for the right
-//      one, transposed so that the contraction index is contiguous);
-//   2. the modular products: int32 sums of int8 products per modulus, reduced to
-//      balanced residues (gemm_modprod / gemv_modprod, in the .cu files);
-//   3. garner_epilogue: balanced Garner digits and the output representation.
-// Stages 1 and 3 and their launchers live here, so that only the two sources
-// that run them compile their 60 instances.
+//      one, transposed so that the contraction index is contiguous: the K-major
+//      layout that integer wgmma needs for both operands);
+//   2. the modular products (gemm_product, in ozaki_gemm.cu);
+//   3. garner_epilogue: Garner digits and the output representation.
+// Bound: stage 1 reads the 8-byte (hi, lo) words once and writes r bytes per
+// element (3 GiB of traffic at 8192^2, r = 16: ~1 ms at 3.35 TB/s); each
+// residue is residue_hilo, three FP64 and two integer operations (the signed
+// low byte of lo for m = 256), where the integer residue took ~20.  Stage 3
+// reads r bytes and writes the output per element; its compensated f64
+// Horner, ~23 FP64 operations per digit, bounds it.  Its digits are
+// garner_digits_lazy's: one reduction per digit, equal to the fully reduced
+// ones.  The float steps are the plain version's operations in its order
+// (--fmad=false).
 #pragma once
 
 #include "ozaki_common.cuh"
 
 namespace ozaki {
-
-__device__ __forceinline__ int4 ldg16(const int8_t* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
-}
 
 // (rows, K) int32 hi/lo, row-major -> (R, rows, K) int8 residues.  n4 is
 // rows * K / 4: a thread turns 4 consecutive elements into one packed word per
@@ -31,12 +34,14 @@ __global__ void __launch_bounds__(256) residues_rows(const int* __restrict__ hi,
        w += (int64_t)gridDim.x * blockDim.x) {
     const int4 h = __ldg(reinterpret_cast<const int4*>(hi) + w);
     const int4 l = __ldg(reinterpret_cast<const int4*>(lo) + w);
+    const double h0 = h.x, h1 = h.y, h2 = h.z, h3 = h.w;
+    const double l0 = l.x, l1 = l.y, l2 = l.z, l3 = l.w;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int m = modulus(i);
-      const unsigned b0 = residue(h.x, l.x, m) & 0xff, b1 = residue(h.y, l.y, m) & 0xff;
-      const unsigned b2 = residue(h.z, l.z, m) & 0xff, b3 = residue(h.w, l.w, m) & 0xff;
-      words[i * n4 + w] = b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
+      words[i * n4 + w] =
+          pack4(residue_hilo(h.x, l.x, h0, l0, m), residue_hilo(h.y, l.y, h1, l1, m),
+                residue_hilo(h.z, l.z, h2, l2, m), residue_hilo(h.w, l.w, h3, l3, m));
     }
   }
 }
@@ -61,8 +66,9 @@ __global__ void __launch_bounds__(256) residues_cols(const int* __restrict__ hi,
       h = hi[idx];
       l = lo[idx];
     }
+    const double hd = h, ld = l;
 #pragma unroll
-    for (int i = 0; i < R; ++i) tile[i][tx][kk] = (int8_t)residue(h, l, modulus(i));
+    for (int i = 0; i < R; ++i) tile[i][tx][kk] = (int8_t)residue_hilo(h, l, hd, ld, modulus(i));
   }
   __syncthreads();
   const int tid = ty * 32 + tx;
@@ -77,19 +83,36 @@ __global__ void __launch_bounds__(256) residues_cols(const int* __restrict__ hi,
 }
 
 // Garner digits and the output representation for `count` outputs whose
-// balanced residues lie in cres (R, count) int8.  Outputs: f64 (count), ds f32
-// (2, count) or digits int8 (R, count), each flat in the (M, N) order of cres.
+// residues lie in cres (R, count) uint8 as gemm_product stores them, (sum +
+// 2^31) mod m: the sum is congruent to that minus 2^31 mod m, a value in (-m,
+// m), which garner_digits_lazy takes as it takes a balanced residue (|res| <=
+// 256 keeps its products inside int32) and whose digits are the same, since a
+// digit is the balanced residue of a congruent value.  Outputs: f64 (count),
+// ds f32 (2, count) or digits int8 (R, count), each flat in the (M, N) order.
+// A persistent grid: each thread loads the next output's R residues before it
+// works on the current one, so that the loads of one overlap the arithmetic of
+// the other.
 template <int R>
-__global__ void __launch_bounds__(256) garner_epilogue(const int8_t* __restrict__ cres,
+__global__ void __launch_bounds__(256) garner_epilogue(const uint8_t* __restrict__ cres,
                                                        int64_t count, int out_rep,
                                                        void* __restrict__ out,
                                                        const __grid_constant__ GarnerParams p) {
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < count;
-       e += (int64_t)gridDim.x * blockDim.x) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  int next[R];
+  if (e < count) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) next[j] = __ldg(cres + j * count + e);
+  }
+  for (; e < count; e += stride) {
     int res[R], dig[R];
 #pragma unroll
-    for (int j = 0; j < R; ++j) res[j] = cres[j * count + e];
-    garner_digits<R>(res, p, dig);
+    for (int j = 0; j < R; ++j) res[j] = next[j] - (int)((1u << 31) % (unsigned)modulus(j));
+    if (e + stride < count) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) next[j] = __ldg(cres + j * count + e + stride);
+    }
+    garner_digits_lazy<R>(res, p, dig);
     if (out_rep == kOutF64) {
       static_cast<double*>(out)[e] = digits_to_f64<R>(dig, p);
     } else if (out_rep == kOutDs) {
@@ -138,18 +161,34 @@ inline cudaError_t launch_residues_cols(int r, const int* hi, const int* lo, int
   return cudaGetLastError();
 }
 
-// Stage 3: Garner over `count` outputs.
-inline cudaError_t launch_garner_epilogue(const int8_t* cres, int64_t count, int out_rep,
+// Stage 3: Garner over `count` outputs, on as many blocks as fit the card at once.
+template <int R>
+inline cudaError_t launch_garner_r(const uint8_t* cres, int64_t count, int out_rep, void* out,
+                                   const GarnerParams& p, cudaStream_t s) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, garner_epilogue<R>, 256, 0);
+  }
+  if (err != cudaSuccess) return err;
+  const unsigned need = grid_for(count, 256);
+  const unsigned fit = (unsigned)(sms * (per_sm > 0 ? per_sm : 1));
+  garner_epilogue<R><<<need < fit ? need : fit, 256, 0, s>>>(cres, count, out_rep, out, p);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_garner_epilogue(const uint8_t* cres, int64_t count, int out_rep,
                                           void* out, const GarnerParams& p, cudaStream_t s) {
-  const unsigned grid = grid_for(count, 256);
   switch (p.r) {
 #define OZAKI_CASE(R_) \
-  case R_: garner_epilogue<R_><<<grid, 256, 0, s>>>(cres, count, out_rep, out, p); break;
+  case R_: return launch_garner_r<R_>(cres, count, out_rep, out, p, s);
     OZAKI_FOR_EACH_R(OZAKI_CASE)
 #undef OZAKI_CASE
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace ozaki

@@ -16,8 +16,9 @@ from repro_torch.core import moduli as moduli_lib
 from repro_torch.core import ozaki2
 from repro_torch.kernels import _build, common
 
-# Tile granules of csrc/ozaki_gemm.cu: M and N in 128-row/column tiles, K in
-# 64-deep MMA steps.  Callers pad to these (repro_torch.core.dispatch does).
+# Granules of csrc/ozaki_gemm.cu: M in 128-row tiles, N in 128-column halves of
+# its 256-column tile, K in 64 (its TMA zero-fills a 128-deep stage past K).
+# Callers pad to these (repro_torch.core.dispatch does).
 TILE_M, TILE_N, TILE_K = 128, 128, 64
 OUT_CODES = {"f64": 0, "digits": 1, "ds": 2}
 

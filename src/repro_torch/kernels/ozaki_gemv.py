@@ -17,9 +17,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ozaki_gemm import (OUT_CODES, check_cuda, check_operands,
                                             check_plan, gemm_hilo_ref, out_shape)
 
-# Granules of csrc/ozaki_gemv.cu: 8 rows per block, K in 32-byte steps.
+# Granules of csrc/ozaki_gemv.cu: 8 rows per warp, K in 32-deep steps.
 TILE_M, TILE_K = 8, 32
 MAX_B = 16
+
+
+def table_bytes(r: int, k: int, b: int) -> int:
+    """Bytes of the kernel's residue table of X: r * K entries of 8 bytes, 16
+    when B > 8 (csrc/ozaki_gemv.cu, gemv_x_table)."""
+    return r * k * (16 if b > 8 else 8)
 
 
 def gemv_hilo_ref(a_hi: torch.Tensor, a_lo: torch.Tensor, x_hi: torch.Tensor,
@@ -51,16 +57,13 @@ def gemv_hilo(a_hi: torch.Tensor, a_lo: torch.Tensor, x_hi: torch.Tensor,
     shape, dtype = out_shape(out_rep, plan.r, m, b)
     dev = a_hi.device
     out = torch.empty(shape, dtype=dtype, device=dev)
-    ares = torch.empty((plan.r, m, k), dtype=torch.int8, device=dev)
-    xres = torch.empty((plan.r, b, k), dtype=torch.int8, device=dev)
-    cres = torch.empty((plan.r, m, b), dtype=torch.int8, device=dev)
+    xres = torch.empty(table_bytes(plan.r, k, b), dtype=torch.int8, device=dev)
     lib = _build.library("ozaki_gemv")
     err = lib.ozaki_gemv_hilo(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         a_hi.data_ptr(), a_lo.data_ptr(), x_hi.data_ptr(), x_lo.data_ptr(),
-        m, k, b, OUT_CODES[out_rep], out.data_ptr(), ares.data_ptr(), xres.data_ptr(),
-        cres.data_ptr(), ctypes.addressof(_build.garner_params(plan)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        m, k, b, OUT_CODES[out_rep], out.data_ptr(), xres.data_ptr(),
+        ctypes.addressof(_build.garner_params(plan)), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gemv_hilo: CUDA launch failed with error {err}")
     gemv_hilo.launches += 1

@@ -39,12 +39,16 @@ def _hilo(x, plan, axis):
     (128, 64, 128), (256, 192, 384), (64, 96, 5), (8, 32, 1),
     (128, (1 << 17) + 64, 128),     # gemm: accumulators reduced inside the K loop
     (8, (1 << 21) + 32, 1),         # gemv: lane sums reduced inside the K loop
+    (384, 320, 640),                # gemm: K past the last 128-deep stage, N / 128 odd
+    (1024, 256, 2048),              # gemm: more work items than 132 SMs
+    (16, 64, 2), (24, 96, 7), (40, 128, 8), (40, 1024, 9), (256, 192, 16),  # gemv widths
 ])
 @pytest.mark.parametrize("out_rep", ["f64", "digits", "ds"])
 def test_cuda_kernel_matches_plain_version(cuda_device, mkn, out_rep):
     m, k, n = mkn
     plan = dispatch.get_plan(k)
     a = torch.from_numpy(RNG.standard_normal((m, k))).to(cuda_device)
+    a[0] *= 1e-300                  # a row scaled by more than 2^1023
     b = torch.from_numpy(RNG.standard_normal((k, n))).to(cuda_device)
     ah, al = _hilo(a, plan, -1)
     bh, bl = _hilo(b, plan, 0)
