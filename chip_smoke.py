@@ -26,13 +26,19 @@ Phases (each prints its results; any failed check makes the script exit 1):
          <= 1e-9, and the GEMV ran iterations + 1 times on the main path.
   stencil the 7-point Laplacian on a seeded 256^3 grid: ``dispatch.stencil7``
          kernel vs reference route (bitwise), against native FP64 (<= 8u * 7 *
-         max|u| * max|c|); ``stencil7``'s kernel against its plain version at
-         256^3 and at 37 x 29 x 51, in every output representation and at two
-         CUDA blocks; times beside ``F.conv3d`` f64 and the bound.
-  jacobi the stencil's main path, with its launch count set to 0 just before
+         max|u| * max|c|); the fused ``stencil7`` (its Phase 1 in the kernel)
+         against its plain version at 256^3 and at 37 x 29 x 51 (also scaled to
+         1e-300 and 1e300), in every output representation, at two tiles; the
+         kernel's time at each tile, the whole call's, its device time by kernel
+         (torch.profiler), beside ``F.conv3d`` f64 and the bound (the FP64
+         operations its bits need).
+  jacobi the stencil's main path, with its launch counts set to 0 just before
          and read just after: ``jacobi_solve`` at 256^3, omega = 2/3, 50 sweeps;
-         the kernel launched sweeps + 1 times, the residual history decreases,
-         and the reference route gives a bitwise-equal history and u.
+         the stencil launched sweeps + 1 times and each reduction kernel sweeps
+         + 2 times, the residual history decreases, and the reference route
+         (plain stencil, tree and fold; no kernel launched) gives a
+         bitwise-equal history and u.  A sweep timed by parts (CUDA events): the
+         stencil call, the residual, the norm, the update.
   spmv   HPCG's operator (27-point stencil, diagonal 26, off-diagonals -1, on
          its default 104^3 local grid) in Blocked-ELL form built on the card:
          ``dispatch.spmv`` kernel vs reference route (bitwise), against native
@@ -51,13 +57,19 @@ Phases (each prints its results; any failed check makes the script exit 1):
          device busy time, its host and stream times, and the device's idle
          share against each (unclamped), and the busy time's split into the
          port's kernels and PyTorch's.
-  carry  ``carry_fold``, the in-order fold that ends every compensated dot and
-         norm, runs on all three main paths (its count is set to 0 and read
-         with the others': 2 per CG iteration + 2, sweeps + 2 per Jacobi
-         solve).  Its kernel against its plain version (numpy on the host) at
-         the main paths' partials (256^3 norm, HPCG 104^3 dot, n = 8192 dot),
-         batched and in float32 with inf, NaN and signed zeros; times of the
-         fold and of a whole 256^3 norm and 104^3 dot.
+  reduce the compensated reductions, which every solver runs (their counts are
+         set to 0 and read with the main paths'): per dot, a ``block_tree``
+         (the blocked two_sum tree) and a ``carry_fold`` (the in-order fold);
+         per norm also a ``norm_scale`` (its exact scale).  ``neumaier_sum``,
+         ``compensated_dot`` and ``compensated_norm``, kernel route vs plain
+         route (torch tree, host fold) at the main paths' lengths (256^3 norm,
+         HPCG 104^3 dot, n = 8192 dot), batched, in float32 and with inf, NaN,
+         signed zeros, zero lanes and denormals, and at blocks past 512
+         elements; each kernel against its plain version; times of each kernel
+         and of a whole norm and dot, the norm's
+         device time by kernel (torch.profiler), the latency of a dependent
+         float64 add (the fold's chain bound), ``torch.linalg.vector_norm`` f64
+         for scale.
   attention ``dispatch.attention`` and ``attention_fused`` at yi-6b's head_dim
          128 (r = 15) in seven cases: causal prefill 32 x 512 x 512 (the serve
          phase's per-layer shape), ragged 6 x 37 x 301 with D = 80, softcap 30,
@@ -129,10 +141,13 @@ EARLIER_MS = {"gemm_hilo 8192^3": 84.360,
               "spmv_bell HPCG 104^3": 2.254,
               "attention_fused causal prefill 32 x 512 x 512": 3.923,
               f"attention_fused decode 64 x 1 x {SERVE_CTX}": 0.172,
-              f"attention_fused decode 64 x 1 x {LONG_CTX}": 7.248}
+              f"attention_fused decode 64 x 1 x {LONG_CTX}": 7.248,
+              "stencil7 256^3": 2.938, "stencil7 call 256^3": 9.357,
+              "jacobi sweep 256^3": 16.623, "carry_fold 256^3 norm": 0.652,
+              "compensated_norm 256^3": 6.653}
 
 FAILURES = []
-CARRY_LAUNCHES = {}      # carry_fold launches on each main path
+REDUCE_LAUNCHES = {}     # {main path: {reduction kernel: launches}}
 GEMM_LAUNCHES = {}       # gemm_hilo launches on each main path
 
 
@@ -199,8 +214,8 @@ def device_busy(prof, steps):
             t = getattr(e, "cuda_time_total", 0)
         if not t or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        m = re.search(r"ozaki::(\w+)|(carry_fold)", e.key)
-        name = (m.group(1) or m.group(2)) if m else "torch's kernels and copies"
+        m = re.search(r"(?:ozaki|carry)::(\w+)", e.key)
+        name = m.group(1) if m else "torch's kernels, copies and memsets"
         parts[name] = parts.get(name, 0.0) + t / 1000.0 / steps
     return sum(parts.values()), sorted(parts.items(), key=lambda kv: -kv[1])
 
@@ -228,12 +243,45 @@ def byte_bound(nbytes):
     return nbytes / BYTES_PER_S * 1e3
 
 
+def reduce_counts(cf, reset=False):
+    """The reduction kernels' launch counts, {name: count}; with ``reset`` set
+    them to 0 first."""
+    fns = (cf.norm_scale, cf.block_tree, cf.carry_fold)
+    if reset:
+        for fn in fns:
+            fn.launches = 0
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def cg_reductions(iters):
+    """A CG solve's reduction launches: ||b|| and dot(r, r) before the loop, two
+    dots an iteration."""
+    return {"norm_scale": 1, "block_tree": 2 * iters + 2, "carry_fold": 2 * iters + 2}
+
+
+# FP64 operations that are not FMAs: one a lane a clock (FP64_OPS_PER_S counts
+# an FMA as two).
+FP64_PLAIN_OPS_PER_S = FP64_OPS_PER_S / 2
+
+
+def stencil_bound(npts, r, per_digit=16.0):
+    """Least time (ms) of the fused stencil at npts points and r moduli, and what
+    bounds it: u read and the f64 output written once (16 B a point), against
+    the FP64 operations its bits need, none fusable: the compensated Horner's 16
+    a digit (its other 7 split an 8-bit digit, exactly: ``per_digit=23`` counts
+    them too, as the plain version and the kernel issue them) and ~8 a point in
+    Phase 1 and the unscale."""
+    t_bytes = 16.0 * npts / BYTES_PER_S
+    t_ops = npts * (per_digit * r + 8.0) / FP64_PLAIN_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def stencil_phases(dev, gen):
     """The stencil and Jacobi phases; returns the stencil7 entry of the kernels line."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.core import dispatch
+    from repro_torch.core import compensated, dispatch
     from repro_torch.hpc import jacobi
     from repro_torch.kernels import carry_fold, ozaki_stencil, ref
 
@@ -253,25 +301,24 @@ def stencil_phases(dev, gen):
           f"= {lim:.3e}")
     del v_r
     tune = dispatch.get_tuning("stencil7", u.shape)
-    blocks = [(int(tune["bz"]), int(tune["by"])), (32, 2)]
-    u_hi, u_lo, c_res, _ = ozaki_stencil._decompose(u, c, plan)
-    cases = [(u_hi, u_lo, c_res, GRID, rep, blocks[0]) for rep in ("f64", "digits", "ds")]
-    cases.append((u_hi, u_lo, c_res, GRID, "f64", blocks[1]))
+    tiles = [(int(tune["bz"]), int(tune["by"]), int(tune["bx"])), (64, 4, 32)]
     ur = torch.randn((37, 29, 51), generator=gen, device=dev, dtype=torch.float64)
     cr = torch.randn(7, generator=gen, device=dev, dtype=torch.float64)
-    rh, rl, rc, _ = ozaki_stencil._decompose(ur, cr, plan)
-    cases += [(rh, rl, rc, "37x29x51", rep, blk) for rep in ("f64", "digits", "ds")
-              for blk in blocks]
     err_kp = 0.0
-    for h, lo, cres, name, rep, blk in cases:
-        k_out = ozaki_stencil._launch(h, lo, cres, plan, rep, *blk)
-        p_out = ozaki_stencil._contract_ref(h, lo, cres, plan, rep)
-        d = n_diff(k_out, p_out)
-        if name == GRID and rep == "f64":
-            err_kp = max(err_kp, float((k_out - p_out).abs().max()))
-        check(d == 0, f"stencil: kernel vs plain version at {name}, {rep}, block {blk}, "
-              f"{d} differing elements")
-        del k_out, p_out
+    for name, uu, cc in ((GRID, u, c), ("37x29x51", ur, cr), ("37x29x51 at 1e-300", ur * 1e-300,
+                                                                cr),
+                         ("37x29x51 at 1e300", ur * 1e300, cr)):
+        for rep in ("f64", "digits", "ds"):
+            p_out = ozaki_stencil.stencil7_ref(uu, cc, plan, rep)
+            for bz, by, bx in tiles:
+                k_out = ozaki_stencil.stencil7(uu, cc, plan, rep, bz=bz, by=by, bx=bx)
+                d = n_diff(k_out, p_out)
+                if name == GRID and rep == "f64":
+                    err_kp = max(err_kp, float((k_out - p_out).abs().max()))
+                check(d == 0, f"stencil: fused kernel vs plain version at {name}, {rep}, tile "
+                      f"{(bz, by, bx)}, {d} differing elements")
+                del k_out
+            del p_out
     weight = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float64, device=dev)
     for (i, j, k), ci in zip(((1, 1, 1), (0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1),
                               (1, 1, 0), (1, 1, 2)), c):
@@ -281,56 +328,89 @@ def stencil_phases(dev, gen):
         return F.conv3d(u[None, None], weight, padding=1)[0, 0]
     conv_err = float((conv() - want).abs().max())
     check(conv_err <= lim, f"stencil: F.conv3d computes the same function ({conv_err:.3e})")
-    t = {"ms": time_ms(lambda: ozaki_stencil._launch(u_hi, u_lo, c_res, plan, "f64",
-                                                     *blocks[0]), reps=10),
-         "plain_ms": time_ms(lambda: ozaki_stencil._contract_ref(u_hi, u_lo, c_res, plan,
-                                                                 "f64"), reps=3),
+    absmax, elog = ozaki_stencil._scales(u, c)
+    kernel_ms = {}
+    for (bz, by, bx) in tiles:
+        kernel_ms[bz, by, bx] = time_ms(
+            lambda: ozaki_stencil._launch(u, c, absmax, elog, plan, "f64", bz, by, bx), reps=10)
+    bz, by, bx = tiles[0]
+    t = {"ms": kernel_ms[tiles[0]],
+         "plain_ms": time_ms(lambda: ozaki_stencil.stencil7_ref(u, c, plan), reps=3),
          "library_ms": time_ms(conv, reps=5),
-         "wrapper_ms": time_ms(lambda: ozaki_stencil.stencil7(u, c, plan, bz=blocks[0][0],
-                                                              by=blocks[0][1]), reps=5),
-         "wrapper_ref_ms": time_ms(lambda: ozaki_stencil.stencil7_ref(u, c, plan), reps=3)}
-    nbytes = 16 * u.numel()
-    print(f"stencil: {GRID}^3 kernel {t['ms']:.3f} ms (block {blocks[0]}), plain "
-          f"{t['plain_ms']:.3f} ms, F.conv3d f64 {t['library_ms']:.3f} ms, bound "
-          f"{byte_bound(nbytes):.4f} ms ({nbytes} B); with Phase 1 and the epilogue: "
-          f"stencil7 {t['wrapper_ms']:.3f} ms, stencil7_ref {t['wrapper_ref_ms']:.3f} ms",
-          flush=True)
-    del u_hi, u_lo, v_k, want, u
+         "wrapper_ms": time_ms(lambda: ozaki_stencil.stencil7(u, c, plan, bz=bz, by=by, bx=bx),
+                               reps=10),
+         "scales_ms": time_ms(lambda: ozaki_stencil._scales(u, c), reps=10)}
+    s_bound, s_by = stencil_bound(u.numel(), plan.r)
+    print(f"stencil: {GRID}^3 fused kernel {t['ms']:.3f} ms (tile {tiles[0]}; PERF.md's "
+          f"earlier kernel {EARLIER_MS['stencil7 256^3']:.3f} ms on Phase-1 operands), bound "
+          f"{s_bound:.4f} ms ({s_by}: 16 r + 8 FP64 operations a point, those the bits need; "
+          f"the 23 r + 8 that the plain version and the kernel issue "
+          f"{stencil_bound(u.numel(), plan.r, 23.0)[0]:.4f} ms; bytes alone "
+          f"{byte_bound(16 * u.numel()):.4f} ms); by tile: "
+          + "; ".join(f"{tl} {ms:.3f} ms" for tl, ms in kernel_ms.items()), flush=True)
+    print(f"stencil: whole stencil7 call {t['wrapper_ms']:.3f} ms (PERF.md's earlier "
+          f"{EARLIER_MS['stencil7 call 256^3']:.3f} ms), of it _scales (aminmax and log2) "
+          f"{t['scales_ms']:.3f} ms; stencil7_ref {t['plain_ms']:.3f} ms; F.conv3d f64 "
+          f"{t['library_ms']:.3f} ms", flush=True)
+    busy, parts = profiled(lambda: ozaki_stencil.stencil7(u, c, plan, bz=bz, by=by, bx=bx), 5)
+    print(f"stencil: device time of a whole stencil7 call {busy:.3f} ms (torch.profiler): "
+          f"{parts_text(parts)}", flush=True)
+    del v_k, want, u
 
     # --------------------------------------------------------------- jacobi
     f = torch.randn((GRID,) * 3, generator=gen, device=dev, dtype=torch.float64)
-    ozaki_stencil.stencil7.launches = 0
-    carry_fold.carry_fold.launches = 0
+    counted = (ozaki_stencil.stencil7, carry_fold.norm_scale, carry_fold.block_tree,
+               carry_fold.carry_fold)
+    for fn in counted:
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res_k = jacobi.jacobi_solve(f, omega=2.0 / 3.0, tol=0.0, maxiter=JACOBI_SWEEPS)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     launches = ozaki_stencil.stencil7.launches
-    CARRY_LAUNCHES["Jacobi"] = carry_fold.carry_fold.launches
+    REDUCE_LAUNCHES["Jacobi"] = {fn.__name__: fn.launches for fn in counted[1:]}
     check(launches == res_k.iters + 1 == JACOBI_SWEEPS + 1,
           f"jacobi: stencil7 launched sweeps + 1 = {launches} times")
-    check(CARRY_LAUNCHES["Jacobi"] == JACOBI_SWEEPS + 2,
-          f"jacobi: carry_fold launched sweeps + 2 = {CARRY_LAUNCHES['Jacobi']} times")
+    check(all(v == JACOBI_SWEEPS + 2 for v in REDUCE_LAUNCHES["Jacobi"].values()),
+          f"jacobi: norm_scale, block_tree and carry_fold launched sweeps + 2 times each "
+          f"({REDUCE_LAUNCHES['Jacobi']})")
     h = res_k.history
     check(all(b < a for a, b in zip(h, h[1:])),
           f"jacobi: residual history decreases ({h[0]:.6e} -> {h[-1]:.6e})")
+    for fn in counted:
+        fn.launches = 0
     t0 = time.perf_counter()
     res_r = jacobi.jacobi_solve(f, omega=2.0 / 3.0, tol=0.0, maxiter=JACOBI_SWEEPS, mode="ref")
     torch.cuda.synchronize()
     t_r = time.perf_counter() - t0
+    check(all(fn.launches == 0 for fn in counted),
+          "jacobi: the reference route launched none of the port's kernels")
     check(res_r.history == h and n_diff(res_r.u, res_k.u) == 0,
-          f"jacobi: reference route over {JACOBI_SWEEPS} sweeps gives a bitwise-equal "
-          f"history and u")
+          f"jacobi: reference route (plain stencil, tree and fold) over {JACOBI_SWEEPS} sweeps "
+          f"gives a bitwise-equal history and u")
+    # one sweep by parts, as jacobi_solve runs it: the stencil call, the residual,
+    # the norm (with its host read), the update
+    uu = res_k.u
+    cj = jacobi.laplacian_coeffs(device=dev)
+    r = f - dispatch.stencil7(uu, cj, plan=plan)
+    w = (2.0 / 3.0) / cj[0].item()
+    parts = {"stencil7 call": time_ms(lambda: dispatch.stencil7(uu, cj, plan=plan), reps=10),
+             "residual f - S u": time_ms(lambda: f - uu, reps=10),
+             "compensated_norm": time_ms(lambda: compensated.compensated_norm(r), reps=10),
+             "update u + w r": time_ms(lambda: uu + w * r, reps=10)}
+    sweep_ms = t_k * 1e3 / (JACOBI_SWEEPS + 1)
     print(f"jacobi: {GRID}^3, omega 2/3, {JACOBI_SWEEPS} sweeps; kernel route "
-          f"{t_k * 1e3 / (JACOBI_SWEEPS + 1):.3f} ms/sweep, reference route "
-          f"{t_r * 1e3 / (JACOBI_SWEEPS + 1):.3f} ms/sweep (host clock, per stencil "
-          f"application incl. the norm)", flush=True)
+          f"{sweep_ms:.3f} ms/sweep (PERF.md's earlier {EARLIER_MS['jacobi sweep 256^3']:.3f}), "
+          f"reference route {t_r * 1e3 / (JACOBI_SWEEPS + 1):.3f} ms/sweep (host clock, per "
+          f"stencil application incl. the norm); a sweep by parts (CUDA events): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
+    del r, uu, res_r, res_k, f
     return {"name": "stencil7", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ozaki_stencil.cu",
             "replaces": "src/repro/kernels/ozaki_stencil.py:98",
             "launches": launches, "max_abs_err": err_kp, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": byte_bound(nbytes), "bound_by": "bytes",
+            "plain_ms": t["plain_ms"], "bound_ms": s_bound, "bound_by": s_by,
             "library_ms": t["library_ms"]}
 
 
@@ -436,19 +516,19 @@ def spmv_phases(dev, gen):
     # -------------------------------------------------------------- cg_bell
     b = a_val.sum(dim=1)                      # A 1, exact: small integers
     ozaki_spmv.spmv_bell.launches = 0
-    carry_fold.carry_fold.launches = 0
+    reduce_counts(carry_fold, reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res_k = cg.cg_solve_bell(a_val, a_col, b, tol=1e-10, maxiter=2000)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     launches = ozaki_spmv.spmv_bell.launches
-    CARRY_LAUNCHES["sparse CG"] = carry_fold.carry_fold.launches
+    REDUCE_LAUNCHES["sparse CG"] = reduce_counts(carry_fold)
     check(launches == res_k.iters + 1,
           f"cg_bell: spmv_bell launched iterations + 1 = {launches} times")
-    check(CARRY_LAUNCHES["sparse CG"] == 2 * res_k.iters + 2,
-          f"cg_bell: carry_fold launched 2 * iterations + 2 = "
-          f"{CARRY_LAUNCHES['sparse CG']} times")
+    check(REDUCE_LAUNCHES["sparse CG"] == cg_reductions(res_k.iters),
+          f"cg_bell: a norm (norm_scale once) and 2 * iterations + 1 dots, each one "
+          f"block_tree and one carry_fold ({REDUCE_LAUNCHES['sparse CG']})")
     rel = float(torch.linalg.vector_norm(ref.spmv_bell_f64(a_val, a_col, res_k.x) - b)
                 / torch.linalg.vector_norm(b))
     xerr = float((res_k.x - 1.0).abs().max())
@@ -507,56 +587,139 @@ def spmv_phases(dev, gen):
             "library_ms": t["library_ms"]}
 
 
-def carry_phase(dev, gen):
-    """The carry fold's phase; returns the carry_fold entry of the kernels line."""
+def dadd_chain(x, n, dev):
+    """n dependent float64 additions of x in one CUDA thread (csrc/dadd_chain.cu),
+    a (1,) tensor: a measure of the latency that bounds the fold's chains."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out = torch.empty(1, dtype=torch.float64, device=dev)
+    err = _build.library("dadd_chain").dadd_chain(
+        out.device.index, float(x), int(n), out.data_ptr(),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dadd_chain: CUDA launch failed with error {err}")
+    return out
+
+
+def reduce_phase(dev, gen):
+    """The compensated reductions' phase; returns the norm_scale, block_tree and
+    carry_fold entries of the kernels line."""
     import torch
 
     from repro_torch.core import compensated, dispatch
-    from repro_torch.kernels import carry_fold
+    from repro_torch.kernels import carry_fold as cf
 
-    def partials(n, batch=(), dtype=torch.float64):
-        x = torch.randn(batch + (n,), generator=gen, device=dev, dtype=dtype)
-        return compensated._block_partials(*compensated.two_prod(x, x),
-                                           dispatch.reduce_block(n))
+    def operand(n, lead=(), dtype=torch.float64):
+        return torch.randn(lead + (n,), generator=gen, device=dev, dtype=dtype)
 
-    cases = {"256^3 norm": partials(GRID ** 3), "HPCG 104^3 dot": partials(HPCG_N ** 3),
-             f"n = {N} dot": partials(N), "37 x 45 lanes": partials(9000, (37, 45)),
-             "float32, 3 lanes": partials(70001, (3,), torch.float32)}
-    sb, cb = (t.clone() for t in cases["37 x 45 lanes"])
-    sb[1, 0, 0], sb[-1, 1, 1], sb[:, 2, 2], cb[:, 2, 2] = float("inf"), float("nan"), -0.0, -0.0
-    cases["inf, NaN, -0"] = (sb, cb)
-    err = 0.0
-    for name, (sb, cb) in cases.items():
-        got = carry_fold.carry_fold(sb, cb)
-        want = carry_fold.carry_fold_ref(sb, cb)
-        nan = torch.isnan(got) | torch.isnan(want)
-        d = n_diff(got, want) + int(((torch.signbit(got) != torch.signbit(want)) & ~nan).sum())
-        if name == "256^3 norm":
-            err = float((got - want).abs().max())
-        check(d == 0, f"carry: kernel vs plain version at {name} ({tuple(sb.shape)} partials), "
-              f"{d} differing elements or signs")
-    sb, cb = cases["256^3 norm"]
-    t = {"ms": time_ms(lambda: carry_fold.carry_fold(sb, cb), reps=20),
-         "plain_ms": time_ms(lambda: carry_fold.carry_fold_ref(sb, cb), reps=5)}
-    x3 = torch.randn((GRID,) * 3, generator=gen, device=dev, dtype=torch.float64)
-    xh = torch.randn(HPCG_N ** 3, generator=gen, device=dev, dtype=torch.float64)
-    norm_ms = time_ms(lambda: compensated.compensated_norm(x3), reps=10)
-    dot_ms = time_ms(lambda: compensated.compensated_dot(xh, xh), reps=10)
-    nb = sb.shape[0]
-    nbytes = 16 * nb + 8
-    t_bytes, t_ops = byte_bound(nbytes), 8 * nb / FP64_OPS_PER_S * 1e3
-    print(f"carry: {nb} partials (256^3 norm) kernel {t['ms']:.4f} ms, plain (host numpy, "
-          f"with the copy) {t['plain_ms']:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms; whole "
-          f"compensated_norm at {GRID}^3 {norm_ms:.3f} ms, compensated_dot at "
-          f"{HPCG_N}^3 {dot_ms:.3f} ms; launches on the main paths {CARRY_LAUNCHES}",
+    def same(a, b):
+        nan = torch.isnan(a) | torch.isnan(b)
+        return n_diff(a, b) + int(((torch.signbit(a) != torch.signbit(b)) & ~nan).sum())
+
+    lengths = {"256^3 norm": GRID ** 3, "HPCG 104^3 dot": HPCG_N ** 3, f"n = {N} dot": N}
+    cases = {name: (operand(n), operand(n)) for name, n in lengths.items()}
+    cases["37 x 45 lanes of 9000"] = (operand(9000, (37, 45)), operand(9000, (37, 45)))
+    cases["float32, 3 lanes of 70001"] = (operand(70001, (3,), torch.float32),
+                                          operand(70001, (3,), torch.float32))
+    x, y = (t.clone() for t in cases["37 x 45 lanes of 9000"])
+    x[0, 0, 1], x[1, 1, -1], x[:, 2, 2], x[3, 3] = float("inf"), float("nan"), -0.0, 0.0
+    x[4, 4] *= 1e-310                                   # denormals
+    cases["inf, NaN, -0, zero lanes, denormals"] = (x, y)
+    for name, (x, y) in cases.items():
+        for what, fn in (("neumaier_sum", lambda m: compensated.neumaier_sum(x, mode=m)),
+                         ("compensated_dot", lambda m: compensated.compensated_dot(x, y, mode=m)),
+                         ("compensated_norm",
+                          lambda m: compensated.compensated_norm(x, axis=-1, mode=m))):
+            d = same(fn("kernel"), fn("ref"))
+            check(d == 0, f"reduce: {what} kernel route vs plain route at {name} "
+                  f"({tuple(x.shape)}), {d} differing elements or signs")
+    x, y = cases["inf, NaN, -0, zero lanes, denormals"]
+    for block in (4096, 10000):                         # pieces of 512, joined in order
+        for what, fn in (("neumaier_sum", lambda m: compensated.neumaier_sum(x, block=block,
+                                                                             mode=m)),
+                         ("compensated_dot", lambda m: compensated.compensated_dot(
+                             x, y, block=block, mode=m))):
+            d = same(fn("kernel"), fn("ref"))
+            check(d == 0, f"reduce: {what} kernel route vs plain route at block {block} "
+                  f"({tuple(x.shape)}, special values), {d} differing elements or signs")
+    x3 = cases["256^3 norm"][0].reshape(1, -1)
+    xh, yh = (t.reshape(1, -1) for t in cases["HPCG 104^3 dot"])
+    block3, blockh = dispatch.reduce_block(GRID ** 3), dispatch.reduce_block(HPCG_N ** 3)
+    bits, flags = cf.norm_scale(x3)
+    wb, wf = cf.norm_scale_ref(x3)
+    check(torch.equal(bits, wb) and torch.equal(flags, wf),
+          "reduce: norm_scale kernel vs plain version at the 256^3 norm")
+    err = {}
+    for name, args in (("256^3 norm", (x3, None, block3, bits)),
+                       ("HPCG 104^3 dot", (xh, yh, blockh, None))):
+        got, want = cf.block_tree(*args), cf.block_tree_ref(*args)
+        d = sum(same(g, w) for g, w in zip(got, want))
+        err[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(d == 0, f"reduce: block_tree kernel vs plain version at {name}, {d} differing "
+              f"partials")
+    sb, cb = cf.block_tree(x3, None, block3, bits)
+    fold_k, fold_p = cf._fold(sb, cb), cf.carry_fold_ref(sb.t(), cb.t())
+    check(same(fold_k, fold_p) == 0, f"reduce: carry_fold kernel vs plain version at the "
+          f"{sb.shape[1]} partials of the 256^3 norm")
+    nb = sb.shape[1]
+    n3 = x3.shape[1]
+    t = {"fold": time_ms(lambda: cf._fold(sb, cb), reps=20),
+         "fold_plain": time_ms(lambda: cf.carry_fold_ref(sb.t(), cb.t()), reps=5),
+         "tree": time_ms(lambda: cf.block_tree(x3, None, block3, bits), reps=20),
+         "tree_plain": time_ms(lambda: cf.block_tree_ref(x3, None, block3, bits), reps=5),
+         "scale": time_ms(lambda: cf.norm_scale(x3), reps=20),
+         "scale_plain": time_ms(lambda: cf.norm_scale_ref(x3), reps=5),
+         "norm": time_ms(lambda: compensated.compensated_norm(x3), reps=20),
+         "norm_ref": time_ms(lambda: compensated.compensated_norm(x3, mode="ref"), reps=5),
+         "dot": time_ms(lambda: compensated.compensated_dot(xh, yh), reps=20),
+         "dot_ref": time_ms(lambda: compensated.compensated_dot(xh, yh, mode="ref"), reps=5),
+         "vector_norm": time_ms(lambda: torch.linalg.vector_norm(x3), reps=20)}
+    busy, parts = profiled(lambda: compensated.compensated_norm(x3), 10)
+    # the chain bound: the latency of a dependent float64 addition, from the
+    # difference of two chain lengths (launch cost cancels)
+    chain = {k: time_ms(lambda k=k: dadd_chain(1.0, k * nb, dev), reps=5) for k in (1, 17)}
+    dadd_ns = (chain[17] - chain[1]) / (16 * nb) * 1e6
+    chain_ms = nb * dadd_ns * 1e-6
+    print(f"reduce: compensated_norm at {GRID}^3 {t['norm']:.3f} ms (PERF.md's earlier "
+          f"{EARLIER_MS['compensated_norm 256^3']:.3f}), plain route {t['norm_ref']:.3f} ms, "
+          f"torch.linalg.vector_norm f64 {t['vector_norm']:.3f} ms (for scale only: not "
+          f"compensated); device time by kernel {busy:.3f} ms (torch.profiler): "
+          f"{parts_text(parts)}", flush=True)
+    print(f"reduce: at the 256^3 norm: norm_scale {t['scale']:.4f} ms (plain "
+          f"{t['scale_plain']:.3f}), block_tree {t['tree']:.4f} ms (plain "
+          f"{t['tree_plain']:.3f}), carry_fold {t['fold']:.4f} ms over {nb} partials (PERF.md's "
+          f"earlier {EARLIER_MS['carry_fold 256^3 norm']:.3f}; plain, host numpy with the copy, "
+          f"{t['fold_plain']:.3f}); a dependent float64 add {dadd_ns:.3f} ns, so the chain bound "
+          f"of {nb} steps is {chain_ms:.4f} ms; compensated_dot at {HPCG_N}^3 {t['dot']:.3f} ms "
+          f"(plain route {t['dot_ref']:.3f}); launches on the main paths {REDUCE_LAUNCHES}",
           flush=True)
-    del x3, xh, cases
-    return {"name": "carry_fold", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/carry_fold.cu",
-            "replaces": "src/repro/core/compensated.py:111",
-            "launches": sum(CARRY_LAUNCHES.values()), "max_abs_err": err, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+    def launches(name):
+        return sum(v[name] for v in REDUCE_LAUNCHES.values())
+
+    def entry(name, ms, plain_ms, nbytes, nops, e, chain_bound=0.0):
+        t_bytes, t_ops = byte_bound(nbytes), nops / FP64_PLAIN_OPS_PER_S * 1e3
+        by = max((t_bytes, "bytes"), (t_ops, "operations"), (chain_bound, "dependent chain"))
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/carry_fold.cu",
+                "replaces": {"norm_scale": "src/repro/core/compensated.py:268",
+                             "block_tree": "src/repro/core/compensated.py:96",
+                             "carry_fold": "src/repro/core/compensated.py:111"}[name],
+                "launches": launches(name), "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": by[0], "bound_by": by[1], "library_ms": None}
+
+    # bytes: the operand read once and the partials written once; operations per
+    # element: the scale (1), two_prod (17) and one combine of the tree (8), none
+    # of them FMAs; the fold: nb steps of its dependent chain
+    out = [entry("norm_scale", t["scale"], t["scale_plain"], 8 * n3 + 12, n3, 0.0),
+           entry("block_tree", t["tree"], t["tree_plain"], 8 * n3 + 16 * nb + 8, 26 * n3,
+                 err["256^3 norm"]),
+           entry("carry_fold", t["fold"], t["fold_plain"], 16 * nb + 8 + 12, 8 * nb,
+                 float((fold_k - fold_p.to(dev)).abs().max()), chain_ms)]
+    del cases, x3, xh, yh, sb, cb
+    return out
 
 
 def native_attention(q, k, v, mask, softcap):
@@ -936,7 +1099,7 @@ def main():
     card = smi_line()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    reports = _build.build()
+    reports = _build.build(_build.SOURCES + _build.PROBES)
     print(f"setup: built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in reports.items():
@@ -959,7 +1122,7 @@ def main():
     # ----------------------------------------------------------------- main
     ozaki_gemm.gemm_hilo.launches = 0
     ozaki_gemv.gemv_hilo.launches = 0
-    carry_fold.carry_fold.launches = 0
+    reduce_counts(carry_fold, reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     c_main = dispatch.matmul(a, b)
@@ -971,7 +1134,7 @@ def main():
     t_cg_k = time.perf_counter() - t0
     launches = {"gemm_hilo": ozaki_gemm.gemm_hilo.launches,
                 "gemv_hilo": ozaki_gemv.gemv_hilo.launches}
-    CARRY_LAUNCHES["dense CG"] = carry_fold.carry_fold.launches
+    REDUCE_LAUNCHES["dense CG"] = reduce_counts(carry_fold)
     GEMM_LAUNCHES["DGEMM"] = launches["gemm_hilo"]
     print(f"main: dispatch.matmul {N}^3 {t_gemm * 1e3:.1f} ms (first call); "
           f"cg_solve_dense n={N}: {res_k.iters} iterations, converged={res_k.converged}; "
@@ -979,8 +1142,9 @@ def main():
     check(launches["gemm_hilo"] == 1, "main: gemm_hilo launched once for the DGEMM")
     check(launches["gemv_hilo"] == res_k.iters + 1,
           f"main: gemv_hilo launched iterations + 1 = {res_k.iters + 1} times")
-    check(CARRY_LAUNCHES["dense CG"] == 2 * res_k.iters + 2,
-          f"main: carry_fold launched 2 * iterations + 2 = {CARRY_LAUNCHES['dense CG']} times")
+    check(REDUCE_LAUNCHES["dense CG"] == cg_reductions(res_k.iters),
+          f"main: a norm (norm_scale once) and 2 * iterations + 1 dots, each one block_tree "
+          f"and one carry_fold ({REDUCE_LAUNCHES['dense CG']})")
 
     # ----------------------------------------------------------------- gemm
     plan = dispatch.get_plan(N)
@@ -1107,7 +1271,7 @@ def main():
     torch.cuda.empty_cache()
     stencil_kernel = stencil_phases(dev, gen)
     spmv_kernel = spmv_phases(dev, gen)
-    carry_kernel = carry_phase(dev, gen)
+    reduce_kernels = reduce_phase(dev, gen)
     torch.cuda.empty_cache()
     attention_kernel = attention_phase(dev, gen)
     torch.cuda.empty_cache()
@@ -1130,11 +1294,12 @@ def main():
          "launches": launches["gemv_hilo"], "max_abs_err": gemv[1]["err"],
          "ms": gemv[1]["ms"], "plain_ms": gemv[1]["plain_ms"], "bound_ms": v_bound,
          "bound_by": v_by, "library_ms": gemv[1]["library_ms"]},
-        stencil_kernel, spmv_kernel, carry_kernel, attention_kernel,
+        stencil_kernel, spmv_kernel, *reduce_kernels, attention_kernel,
     ]
     print("kernels: " + ", ".join(f"{k['name']} {k['launches']} launches" for k in kernels)
           + f" on the main paths (gemm_hilo {GEMM_LAUNCHES})", flush=True)
-    names = ["gemm_hilo", "gemv_hilo", "stencil7", "spmv_bell", "carry_fold", "attention_fused"]
+    names = ["gemm_hilo", "gemv_hilo", "stencil7", "spmv_bell", "norm_scale", "block_tree",
+             "carry_fold", "attention_fused"]
     check([k["name"] for k in kernels] == names and
           all(isinstance(k["launches"], int) and k["launches"] > 0 for k in kernels),
           f"kernels: the line lists all {len(names)} kernels, each launched on a main path")

@@ -11,9 +11,14 @@ Blocked EFT execution, as in the reference:
      steps over all blocks at once) gives per-block partials ``(s_b, c_b)``;
   3. a carry-propagating fold over the ``nblocks`` partials, in order, folds
      them with ``two_sum`` (the reference's ``lax.scan``), feeding the carries
-     into the compensation stream (``kernels/carry_fold.py``: a CUDA kernel
-     for CUDA tensors, numpy running sums on the host for CPU tensors);
+     into the compensation stream;
   4. the result is ``s + c``.
+Two routes (dispatch kind ``reduce``; ``mode=`` or ``dispatch.mode_scope``,
+``auto`` by the operand's device): ``kernel``, the Hopper kernels of
+``kernels/carry_fold.py`` (the norm's pre-pass, the tree, the fold; CUDA
+tensors of float64 or float32 only), and ``ref``, the plain version: the tree
+as torch ops and the fold as numpy running sums on the host
+(``carry_fold_ref``).  The two are bitwise equal.
 Every ``two_sum``/``two_prod`` is exact and only the compensation stream is
 summed in working precision, which gives the Ogita-Rump Sum2/Dot2 bound for any
 blocking.  The element-wise ``*_scan`` forms are the parity references.
@@ -81,10 +86,22 @@ def _block_partials(p: torch.Tensor, e: torch.Tensor, block: int):
 
 
 def _blocked_sum2(p: torch.Tensor, e: torch.Tensor, block: int) -> torch.Tensor:
-    """Compensated sum of p (+ pre-existing error stream e) along the last axis."""
+    """Compensated sum of p (+ pre-existing error stream e) along the last axis:
+    the plain version (torch tree, host fold)."""
     from repro_torch.kernels import carry_fold  # deferred: the kernels import the core
 
-    return carry_fold.carry_fold(*_block_partials(p, e, block))
+    return carry_fold.carry_fold_ref(*_block_partials(p, e, block))
+
+
+def _kernel_reduce(x: torch.Tensor, y: Optional[torch.Tensor], block: int,
+                   norm: bool = False) -> torch.Tensor:
+    """The kernel route over the last axis of x (and y): the batch's shape."""
+    from repro_torch.kernels import carry_fold  # deferred: the kernels import the core
+
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    lanes = x.reshape(-1, n) if lead else x.reshape(1, n)
+    other = None if y is None else y.reshape(lanes.shape)
+    return carry_fold.reduce(lanes, other, block=block, norm=norm).reshape(lead)
 
 
 def _normalize_axis(axis: int, ndim: int) -> int:
@@ -97,15 +114,18 @@ def _normalize_axis(axis: int, ndim: int) -> int:
 # Public reductions — blocked fast path
 # ---------------------------------------------------------------------------
 
-def neumaier_sum(x: torch.Tensor, axis: int = -1,
-                 block: Optional[int] = None) -> torch.Tensor:
+def neumaier_sum(x: torch.Tensor, axis: int = -1, block: Optional[int] = None,
+                 mode: Optional[str] = None) -> torch.Tensor:
     """Compensated (twice-working-precision) sum along ``axis`` (batched)."""
     x = torch.movedim(x, _normalize_axis(axis, x.ndim), -1)
-    return _blocked_sum2(x, torch.zeros_like(x), _resolve_block(x.shape[-1], block))
+    block = _resolve_block(x.shape[-1], block)
+    if dispatch.kernel_route(None, "reduce", mode, x.device):
+        return _kernel_reduce(x, None, block)
+    return _blocked_sum2(x, torch.zeros_like(x), block)
 
 
 def compensated_dot(x: torch.Tensor, y: torch.Tensor, axis: int = -1,
-                    block: Optional[int] = None) -> torch.Tensor:
+                    block: Optional[int] = None, mode: Optional[str] = None) -> torch.Tensor:
     """Ogita-Rump Dot2 inner product: ~twice-working-precision accuracy.
 
     Every product is split exactly with ``two_prod`` and the accumulation
@@ -117,8 +137,11 @@ def compensated_dot(x: torch.Tensor, y: torch.Tensor, axis: int = -1,
     ax = _normalize_axis(axis, x.ndim)
     x = torch.movedim(x, ax, -1)
     y = torch.movedim(y, ax, -1)
+    block = _resolve_block(x.shape[-1], block)
+    if dispatch.kernel_route(None, "reduce", mode, x.device):
+        return _kernel_reduce(x, y, block)
     p, e = two_prod(x, y)
-    return _blocked_sum2(p, e, _resolve_block(x.shape[-1], block))
+    return _blocked_sum2(p, e, block)
 
 
 # IEEE-754 layouts: dtype -> (bit-int dtype, mantissa bits, exponent bias,
@@ -158,7 +181,8 @@ def _decompose(x: torch.Tensor):
     return m, e
 
 
-def compensated_norm(x: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
+def compensated_norm(x: torch.Tensor, axis: Optional[int] = None,
+                     mode: Optional[str] = None) -> torch.Tensor:
     """Overflow/underflow-safe compensated 2-norm ||x||_2.
 
     ``axis=None`` reduces over all elements; an integer ``axis`` reduces that
@@ -171,6 +195,9 @@ def compensated_norm(x: torch.Tensor, axis: Optional[int] = None) -> torch.Tenso
     else:
         ax = _normalize_axis(axis, x.ndim)
     it, mb, eb, _ = _ieee_layout(x.dtype)
+    if dispatch.kernel_route(None, "reduce", mode, x.device):
+        xm = torch.movedim(x, ax, -1)
+        return _kernel_reduce(xm, None, _resolve_block(xm.shape[-1], None), norm=True)
     finite = torch.isfinite(x)
     has_nan = torch.isnan(x).any(dim=ax)
     has_inf = torch.isinf(x).any(dim=ax)
@@ -183,7 +210,7 @@ def compensated_norm(x: torch.Tensor, axis: Optional[int] = None) -> torch.Tenso
     es = elog.amax(dim=ax, keepdim=True)
     es = torch.where(es == sentinel, torch.zeros_like(es), es)   # all-zero: scale 1
     xs = m * _pow2(e - es, x.dtype)
-    r = sqrt(compensated_dot(xs, xs, ax))          # in [1, ~2*sqrt(n)]
+    r = sqrt(compensated_dot(xs, xs, ax, mode="ref"))   # in [1, ~2*sqrt(n)]
     es = es.squeeze(ax)
     # r * 2**es as two exact power-of-two multiplies ...
     half = torch.div(es, 2, rounding_mode="floor")

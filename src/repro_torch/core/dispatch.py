@@ -22,6 +22,10 @@ here:
      the reference's arithmetic op for op, so on one device the two routes are
      bitwise equal.
 
+     The compensated reductions (kind ``reduce``) route between the fused
+     two_sum tree and carry fold kernels (``kernels/carry_fold.py``) and their
+     plain version, the torch tree and the host fold.
+
   3. **Mode** — the route follows, in priority order, an explicit ``mode=``
      argument and this thread's ``mode_scope`` / ``set_mode`` override; the
      default is ``auto``.  ``auto`` takes the kernel for CUDA tensors and the
@@ -50,10 +54,8 @@ from repro_torch.core import ozaki2
 
 MODES = ("auto", "ref", "kernel")
 KINDS = ("gemm", "gemv", "spmv_bell", "stencil7", "attention")
-# The compensated reductions take their block size from the tuning table too.
-# They have no Ozaki route, so "reduce" always resolves to "ref": their tree
-# runs as torch ops and their carry fold (kernels/carry_fold.py) follows the
-# partials' device, the kernel on the card, whatever the mode.
+# The compensated reductions (core/compensated.py) route too, and take their
+# block size from the tuning table; they need no plan.
 TUNE_KINDS = KINDS + ("reduce",)
 
 AUTO_ROUTE = {
@@ -62,7 +64,7 @@ AUTO_ROUTE = {
     "spmv_bell": {"cuda": "kernel", "default": "ref"},
     "stencil7": {"cuda": "kernel", "default": "ref"},
     "attention": {"cuda": "kernel", "default": "ref"},
-    "reduce": {"default": "ref"},
+    "reduce": {"cuda": "kernel", "default": "ref"},
 }
 
 # RHS widths at or below this route to the batched-GEMV kernel instead of
@@ -145,8 +147,8 @@ def clear_plan_cache() -> None:
 # kernels (csrc/ozaki_gemm.cu: 128-row tiles, N in halves of its 256-column
 # tile, K in 64; csrc/ozaki_gemv.cu: 8 rows per warp, 32-deep K steps).  spmv_bell's br is
 # the rows (threads) per block of csrc/ozaki_spmv.cu; stencil7's block is bz
-# threads along z by by along y (csrc/ozaki_stencil.cu).  Neither changes a bit
-# of the result.  attention's bq is the q rows of a tile of
+# threads along z by by along y marching over bx planes along x
+# (csrc/ozaki_stencil.cu).  Neither changes a bit of the result.  attention's bq is the q rows of a tile of
 # csrc/ozaki_attention.cu (two 16-row MMA tiles at 32; at most 16 above
 # head_dim 128, where two do not fit a block's shared memory; the reference's
 # 128 is a TPU VMEM tile) and does not change the result; its bkv, the key
@@ -156,7 +158,7 @@ TUNE_TABLE: Dict[Tuple[str, str], Dict[str, Any]] = {
     ("gemm", "*"): {"bm": 128, "bn": 128, "bk": 64},
     ("gemv", "*"): {"bm": 8, "bk": 32},
     ("spmv_bell", "*"): {"br": 128},
-    ("stencil7", "*"): {"bz": 64, "by": 4},
+    ("stencil7", "*"): {"bz": 32, "by": 8, "bx": 64},
     ("attention", "*"): {"bq": 32, "bkv": 128},
     ("reduce", "*"): {"block": 512},
     # Kept from the reference's table (measured there on a CPU): >=64k-element
@@ -264,10 +266,12 @@ def _validate_kind(kind: str) -> str:
 
 
 def kernel_supported(plan: Optional[ozaki2.Plan], kind: str = "gemm") -> bool:
-    """The Ozaki kernels implement the int8 residue substrate; ``reduce`` has no
-    route to choose (its carry fold follows the device)."""
+    """The Ozaki kernels implement the int8 residue substrate; the reduction
+    kernels (``reduce``) take no plan."""
     _validate_kind(kind)
-    return kind != "reduce" and plan is not None and plan.substrate == "int8"
+    if kind == "reduce":
+        return True
+    return plan is not None and plan.substrate == "int8"
 
 
 def choose_route(plan: Optional[ozaki2.Plan], kind: str = "gemm",
@@ -289,8 +293,8 @@ def choose_route(plan: Optional[ozaki2.Plan], kind: str = "gemm",
     return table.get(dev_type, table["default"])
 
 
-def _kernel_route(plan: ozaki2.Plan, kind: str, mode: Optional[str],
-                  device: torch.device) -> bool:
+def kernel_route(plan: Optional[ozaki2.Plan], kind: str, mode: Optional[str],
+                 device: torch.device) -> bool:
     """Whether this call takes the kernel route; the kernels take CUDA tensors only."""
     if choose_route(plan, kind, mode, device=device) != "kernel":
         return False
@@ -325,7 +329,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
         raise ValueError(f"operands on different devices: {a.device} vs {b.device}")
     if plan is None:
         plan = get_plan(a.shape[1], payload_bits, substrate)
-    if _kernel_route(plan, _matmul_kind(b.shape[1]), mode, a.device):
+    if kernel_route(plan, _matmul_kind(b.shape[1]), mode, a.device):
         return _kernel_matmul(a, b, plan)
     return ozaki2.emulated_matmul(a, b, plan, out_dtype=torch.float64)
 
@@ -355,7 +359,7 @@ def spmv(a_val: torch.Tensor, a_col: torch.Tensor, x: torch.Tensor,
 
     if plan is None:
         plan = get_plan(a_val.shape[1], margin_bits=4)
-    if _kernel_route(plan, "spmv_bell", mode, x.device):
+    if kernel_route(plan, "spmv_bell", mode, x.device):
         if br is None:
             br = int(get_tuning("spmv_bell", a_val.shape)["br"])
         return _spmv.spmv_bell(a_val, a_col, x, plan, out_rep=out_rep, br=br)
@@ -371,17 +375,18 @@ def stencil7(u: torch.Tensor, c: torch.Tensor, plan: Optional[ozaki2.Plan] = Non
     -z, +z]; boundary points see a zero halo.  Returns float64 (X, Y, Z) on u's
     device.  The route follows ``choose_route(plan, "stencil7", mode)``.  The
     CUDA block (``bz`` threads along z, as the reference's z-slab, by ``by``
-    along y) comes from the tuning table unless ``bz`` is given, and does not
-    change the result.
+    along y, marching over ``bx`` planes along x) comes from the tuning table
+    unless ``bz`` is given, and does not change the result.
     """
     from repro_torch.kernels import ozaki_stencil as _stencil  # deferred
 
     if plan is None:
         plan = get_plan(8, margin_bits=4)
-    if _kernel_route(plan, "stencil7", mode, u.device):
+    if kernel_route(plan, "stencil7", mode, u.device):
         tune = get_tuning("stencil7", u.shape)
         bz = int(tune["bz"]) if bz is None else bz
-        return _stencil.stencil7(u, c, plan, out_rep=out_rep, bz=bz, by=int(tune["by"]))
+        return _stencil.stencil7(u, c, plan, out_rep=out_rep, bz=bz, by=int(tune["by"]),
+                                 bx=int(tune["bx"]))
     return _stencil.stencil7_ref(u, c, plan, out_rep=out_rep)
 
 
@@ -429,7 +434,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = q.to(f64).reshape(B, S, D)
     kf = k.to(f64).reshape(B, T, D)
     vf = v.to(f64).reshape(B, T, D)
-    if _kernel_route(plan_qk, "attention", mode, q.device):
+    if kernel_route(plan_qk, "attention", mode, q.device):
         out = _attn.attention_fused(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bq=bq,
                                     bkv=bkv)
     else:

@@ -16,6 +16,7 @@ recomputed with plain working-precision dots (``history_plain``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional
 
 import torch
@@ -73,19 +74,27 @@ def cg_solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     return CGResult(x, it, history[-1], False, history, history_plain)
 
 
+def _routed(mode: Optional[str], kw: dict) -> dict:
+    """cg_solve's keywords with its dot and norm on ``mode``'s route (unless given)."""
+    kw.setdefault("dot", functools.partial(compensated.compensated_dot, mode=mode))
+    kw.setdefault("norm", functools.partial(compensated.compensated_norm, mode=mode))
+    return kw
+
+
 def cg_solve_bell(a_val: torch.Tensor, a_col: torch.Tensor, b: torch.Tensor,
                   plan: Optional[ozaki2.Plan] = None, out_rep: str = "f64",
                   mode: Optional[str] = None, **kw) -> CGResult:
     """CG with the Ozaki-II Blocked-ELL SpMV as the matvec, dispatch-routed
     (reference route or the ``spmv_bell`` kernel per ``mode`` / ``mode_scope``,
-    ``auto`` by the tensors' device).  The plan resolves once, not per
-    iteration; Phase 1 of ``a_val`` is redone by every matvec."""
+    ``auto`` by the tensors' device), and its compensated dots and norm on the
+    same route.  The plan resolves once, not per iteration; Phase 1 of
+    ``a_val`` is redone by every matvec."""
     if plan is None:
         plan = dispatch.get_plan(a_val.shape[1], margin_bits=4)
 
     def matvec(x):
         return dispatch.spmv(a_val, a_col, x, plan=plan, out_rep=out_rep, mode=mode)
-    return cg_solve(matvec, b, **kw)
+    return cg_solve(matvec, b, **_routed(mode, kw))
 
 
 def cg_solve_dense(a: torch.Tensor, b: torch.Tensor,
@@ -93,10 +102,11 @@ def cg_solve_dense(a: torch.Tensor, b: torch.Tensor,
                    mode: Optional[str] = None, **kw) -> CGResult:
     """CG on a dense SPD matrix with the emulated matvec routed through the
     dispatch seam (reference route or the ``gemv_hilo`` kernel per ``mode`` /
-    ``mode_scope``, ``auto`` by the tensors' device)."""
+    ``mode_scope``, ``auto`` by the tensors' device), and its compensated dots
+    and norm on the same route."""
     if plan is None:
         plan = dispatch.get_plan(a.shape[-1], margin_bits=4)
 
     def matvec(x):
         return dispatch.matmul(a, x[:, None], plan=plan, mode=mode)[:, 0]
-    return cg_solve(matvec, b, **kw)
+    return cg_solve(matvec, b, **_routed(mode, kw))

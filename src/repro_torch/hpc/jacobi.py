@@ -2,9 +2,9 @@
 
 The operator application, the dominant cost of a sweep, is the emulated
 7-point stencil behind the dispatch seam (``repro_torch.core.dispatch.stencil7``),
-so ``mode`` / ``mode_scope`` flips every multiplication of the solver between
-the Hopper kernel and its bitwise-equal plain version.  The update is
-elementwise; the stopping test uses compensated norms.
+and the stopping test's compensated norms route too (kind ``reduce``), so
+``mode`` / ``mode_scope`` flips every kernel of the solver between the Hopper
+kernels and their bitwise-equal plain versions.  The update is elementwise.
 
 Discretisation: the second-order finite-difference Laplacian on a regular
 grid with homogeneous Dirichlet boundary conditions (the stencil's zero halo
@@ -90,13 +90,13 @@ def jacobi_solve(f: torch.Tensor,
     diag = coeffs[0]
     u = torch.zeros_like(f) if x0 is None else x0
 
-    fnorm = max(float(compensated.compensated_norm(f)), 1e-300)
+    fnorm = max(float(compensated.compensated_norm(f, mode=mode)), 1e-300)
 
     def residual(u):
         return f - dispatch.stencil7(u, c, plan=plan, mode=mode)
 
     r = residual(u)
-    rel = float(compensated.compensated_norm(r)) / fnorm
+    rel = float(compensated.compensated_norm(r, mode=mode)) / fnorm
     history: List[float] = [rel]
     if rel < tol:
         return JacobiResult(u, 0, rel, True, history)
@@ -106,7 +106,7 @@ def jacobi_solve(f: torch.Tensor,
         u = u + (omega / diag) * r
         r = residual(u)
         if it % check_every == 0 or it == maxiter:
-            rel = float(compensated.compensated_norm(r)) / fnorm
+            rel = float(compensated.compensated_norm(r, mode=mode)) / fnorm
             history.append(rel)
             if rel < tol:
                 return JacobiResult(u, it, rel, True, history)

@@ -26,6 +26,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent / "build"
 SOURCES = ("ozaki_gemm", "ozaki_gemv", "ozaki_stencil", "ozaki_spmv", "carry_fold",
            "ozaki_attention")
+# Measurement probes beside the kernels, built only when asked for by name.
+PROBES = ("dadd_chain",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_R = 20  # ozaki::kMaxR
@@ -33,24 +35,32 @@ MAX_R = 20  # ozaki::kMaxR
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
 _INT64 = ctypes.c_int64
-# Each source's C entry point: its name and argument types.
+# Each source's C entry points: (name, argument types) pairs.
 ENTRY_POINTS = {
     # (device, a_hi, a_lo, b_hi, b_lo, M, N, K, out_rep, out, ares, bres, cres, params,
     #  stream)
-    "ozaki_gemm": ("ozaki_gemm_hilo", [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 6),
+    "ozaki_gemm": (("ozaki_gemm_hilo", [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 6),),
     # (device, a_hi, a_lo, x_hi, x_lo, M, K, B, out_rep, out, xres, params, stream)
-    "ozaki_gemv": ("ozaki_gemv_hilo", [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 4),
-    # (device, u_hi, u_lo, c_res, X, Y, Z, bz, by, out_rep, out, params, stream)
-    "ozaki_stencil": ("ozaki_stencil_hilo", [_INT] + [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P] * 3),
+    "ozaki_gemv": (("ozaki_gemv_hilo", [_INT] + [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P] * 4),),
+    # (device, u, c, absmax, elog, payload_bits, X, Y, Z, bz, by, bx, out_rep, out,
+    #  shift_out, params, stream)
+    "ozaki_stencil": (("ozaki_stencil7", [_INT] + [_VOID_P] * 4 + [_INT] * 8 + [_VOID_P] * 4),),
     # (device, a_hi, a_lo, cols, x_hi, x_lo, M, N, bw, br, out_rep, out, xres, params,
     #  stream)
-    "ozaki_spmv": ("ozaki_spmv_hilo", [_INT] + [_VOID_P] * 5 + [_INT] * 5 + [_VOID_P] * 4),
-    # (device, dtype_bytes, s_b, c_b, nb, lanes, out, stream)
-    "carry_fold": ("carry_fold", [_INT] * 2 + [_VOID_P] * 2 + [_INT64] * 2 + [_VOID_P] * 2),
+    "ozaki_spmv": (("ozaki_spmv_hilo", [_INT] + [_VOID_P] * 5 + [_INT] * 5 + [_VOID_P] * 4),),
+    "carry_fold": (
+        # (device, dtype_bytes, s_b, c_b, nb, lanes, scale_bits, flags, out, stream)
+        ("carry_fold", [_INT] * 2 + [_VOID_P] * 2 + [_INT64] * 2 + [_VOID_P] * 4),
+        # (device, dtype_bytes, kind, x, y, scale_bits, n, lanes, block, s_b, c_b, stream)
+        ("carry_tree", [_INT] * 3 + [_VOID_P] * 3 + [_INT64] * 2 + [_INT] + [_VOID_P] * 3),
+        # (device, dtype_bytes, x, n, lanes, bits, flags, stream)
+        ("carry_norm_scale", [_INT] * 2 + [_VOID_P] + [_INT64] * 2 + [_VOID_P] * 3)),
     # (device, q_hi, q_lo, k_hi, k_lo, v_hi, v_lo, sq, sk, sv, mask, out, qres, kres,
     #  vres, s_buf, pv_buf, stats, path, shape, params, stream)
-    "ozaki_attention": ("ozaki_attention_fused", [_INT] + [_VOID_P] * 17 + [_INT]
-                        + [_VOID_P] * 3),
+    "ozaki_attention": (("ozaki_attention_fused", [_INT] + [_VOID_P] * 17 + [_INT]
+                        + [_VOID_P] * 3),),
+    # (device, x, n, out, stream): n dependent float64 additions in one thread
+    "dadd_chain": (("dadd_chain", [_INT, ctypes.c_double, _INT64] + [_VOID_P] * 2),),
 }
 
 
@@ -66,6 +76,8 @@ class GarnerParams(ctypes.Structure):
         ("pref_f64_lo", ctypes.c_double * MAX_R),
         ("pref_f32", ctypes.c_float * MAX_R),
         ("pref_f32_lo", ctypes.c_float * MAX_R),
+        ("pref_f64_h", ctypes.c_double * MAX_R),
+        ("pref_f64_l", ctypes.c_double * MAX_R),
     ]
 
 
@@ -91,6 +103,10 @@ def garner_params(plan) -> GarnerParams:
     p.pref_f64_lo[:r] = [float(v) for v in gc.pref_f64_lo]
     p.pref_f32[:r] = [float(v) for v in ph]
     p.pref_f32_lo[:r] = [float(v) for v in pl]
+    split = [common._split_const(np.float64(v), np.float64(2.0 ** 27 + 1.0))
+             for v in gc.pref_f64]
+    p.pref_f64_h[:r] = [float(h) for h, _ in split]
+    p.pref_f64_l[:r] = [float(lo) for _, lo in split]
     return p
 
 
@@ -149,8 +165,8 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     build([name])
     lib = ctypes.CDLL(str(_library_path(name)))
-    entry, argtypes = ENTRY_POINTS[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for entry, argtypes in ENTRY_POINTS[name]:
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

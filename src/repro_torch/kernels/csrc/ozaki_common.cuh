@@ -1,8 +1,8 @@
 // Device code shared by the Ozaki-II Hopper kernels (ozaki_gemm.cu, ozaki_gemv.cu,
 // ozaki_stencil.cu, ozaki_spmv.cu, ozaki_attention.cu): the moduli, the
-// launch-parameter block, the balanced residues, the Garner digits, the output
-// representations and the cp.async wrappers.  The stages only the GEMM runs
-// are in ozaki_product.cuh.
+// launch-parameter block, the balanced residues, the lazy Garner digits, the
+// output representations and the cp.async wrappers.  The stages only the GEMM
+// runs are in ozaki_product.cuh.
 //
 // Every step repeats a plain torch function of repro_torch/kernels/common.py op
 // for op.  The build passes --fmad=false so that the Veltkamp two_prod and the
@@ -44,6 +44,8 @@ struct GarnerParams {
   double pref_f64_lo[kMaxR];
   float pref_f32[kMaxR];
   float pref_f32_lo[kMaxR];
+  double pref_f64_h[kMaxR];  // Veltkamp split of pref_f64 (2^27 + 1), as the plain
+  double pref_f64_l[kMaxR];  // version splits the constant: digits_to_f64's ph_h, ph_l
 };
 
 enum OutRep { kOutF64 = 0, kOutDigits = 1, kOutDs = 2 };
@@ -61,13 +63,6 @@ __device__ __forceinline__ int bmod(int v, int m) {
   return t;
 }
 
-// Balanced residue of x = hi * 2^26 + lo (common.residue).  hi is reduced first
-// so that hi * (2^26 mod m) + lo stays inside int32 (|lo| <= 2^25); the balanced
-// residue of x is unique, so the bits equal the plain version's.
-__device__ __forceinline__ int residue(int hi, int lo, int m) {
-  return bmod(bmod(hi, m) * ((1 << kSplitBits) % m) + lo, m);
-}
-
 // Balanced residue of an int64 v: v = hi32 * 2^32 + lo32 with lo32 unsigned.
 __device__ __forceinline__ int bmod64(long long v, int m) {
   const int hi = (int)(v >> 32);
@@ -76,29 +71,13 @@ __device__ __forceinline__ int bmod64(long long v, int m) {
   return bmod(bmod(hi, m) * c32 + (int)(lo % (unsigned)m), m);
 }
 
-// Balanced mixed-radix digits from the balanced residues (common.garner_digits).
-template <int R>
-__device__ __forceinline__ void garner_digits(const int (&res)[R], const GarnerParams& p,
-                                              int (&t)[R]) {
-  int carry[R];
-#pragma unroll
-  for (int l = 0; l < R; ++l) carry[l] = 0;
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    t[j] = bmod((res[j] - carry[j]) * p.inv_pref[j], modulus(j));
-#pragma unroll
-    for (int l = j + 1; l < R; ++l) {
-      carry[l] = bmod(carry[l] + t[j] * p.pref_mod[j][l], modulus(l));
-    }
-  }
-}
-
-// The same digits with the carries left unreduced: carry[l] sums at most 19
-// terms t_j * pref_mod[j][l] with |t_j| <= 128 and 0 <= pref_mod < 256, so it
-// stays below 2^20 and (res - carry) * inv_pref below 2^28.  Each digit is the
-// balanced residue of a value congruent to garner_digits' argument, and the
-// balanced residue is unique, so the digits are equal; one bmod per digit
-// instead of R(R+1)/2.
+// Balanced mixed-radix digits (common.garner_digits) with the carries left
+// unreduced: carry[l] sums at most 19 terms t_j * pref_mod[j][l] with |t_j| <=
+// 128 and 0 <= pref_mod < 256, so it stays below 2^20, and with |res| < 2^20
+// (a balanced residue, or any sum congruent to one) (res - carry) * inv_pref
+// stays below 2^29.  Each digit is the balanced residue of a value congruent to
+// common.garner_digits' argument, and the balanced residue is unique, so the
+// digits are equal; one bmod per digit instead of R(R+1)/2.
 template <int R>
 __device__ __forceinline__ void garner_digits_lazy(const int (&res)[R], const GarnerParams& p,
                                                    int (&t)[R]) {
@@ -182,7 +161,7 @@ __device__ __forceinline__ int bmod_f64(double z, int m, double inv, int half_hi
   return t;
 }
 
-// residue(hi, lo, m) through FP64 for any int32 hi and lo (converted once by the
+// common.residue(hi, lo, m) through FP64 for any int32 hi and lo (converted once by the
 // caller): z = hi * (2^26 mod m) + lo is exact (|z| < 2^40) and congruent to
 // hi * 2^26 + lo.  m a compile-time constant after unrolling.
 __device__ __forceinline__ int residue_f64(double hi, double lo, int m) {
@@ -190,7 +169,7 @@ __device__ __forceinline__ int residue_f64(double hi, double lo, int m) {
   return bmod_f64(z, m, 1.0 / m, (m - 1) / 2, -(m / 2));
 }
 
-// residue(hi, lo, m) for any int32 hi and lo, given also as doubles, with m a
+// common.residue(hi, lo, m) for any int32 hi and lo, given also as doubles, with m a
 // compile-time constant after unrolling: three FP64 and two integer operations,
 // and no fix-up.  z = hi (2^26 mod m) + lo is exact in FP64 (|z| < 2^40) and
 // congruent to hi 2^26 + lo.  y = z * fl(1/m) lies within 2^-19 of z / m, and
@@ -274,7 +253,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Compensated double-double Horner over the digits (common.digits_to_f64).
+// Compensated double-double Horner over the digits (common.digits_to_f64); the
+// constant's split comes from the host, computed as the plain version does.
 template <int R>
 __device__ __forceinline__ double digits_to_f64(const int (&t)[R], const GarnerParams& p) {
   const double split = 134217729.0;  // 2^27 + 1
@@ -287,9 +267,8 @@ __device__ __forceinline__ double digits_to_f64(const int (&t)[R], const GarnerP
     const double c1 = split * tf;
     const double tf_h = c1 - (c1 - tf);
     const double tf_l = tf - tf_h;
-    const double c2 = split * ph;
-    const double ph_h = c2 - (c2 - ph);
-    const double ph_l = ph - ph_h;
+    const double ph_h = p.pref_f64_h[j];
+    const double ph_l = p.pref_f64_l[j];
     double e = ((tf_h * ph_h - pr) + tf_h * ph_l + tf_l * ph_h) + tf_l * ph_l;
     e = e + tf * p.pref_f64_lo[j];
     const double s = out + pr;

@@ -16,7 +16,7 @@ from repro_torch.core import compensated, dispatch, ozaki2, splitting  # noqa: E
 from repro_torch.hpc import cg, jacobi  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv, ozaki_spmv, ozaki_stencil)
+    _build, carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv, ozaki_spmv, ozaki_stencil)
 from repro_torch.models.transformer import Model  # noqa: E402
 
 RNG = np.random.default_rng(17)
@@ -256,6 +256,160 @@ def test_cuda_carry_fold_raises_on_bad_input(cuda_device):
         carry_fold.carry_fold(s, s[:, :2])
     with pytest.raises(ValueError):
         carry_fold.carry_fold(s, s.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 29, 51), (3, 9, 70), (65, 2, 5)])
+@pytest.mark.parametrize("scale", [1e-300, 1.0, 1e300])
+@pytest.mark.parametrize("tile", [(32, 8, 64), (16, 4, 5)])
+def test_cuda_stencil_fused_phase1_at_extreme_scales(cuda_device, shape, scale, tile):
+    """The kernel's own Phase 1 (shifts past 2^1023 either way, the too-big
+    guard, the split) and its unscale, in every representation, at two tiles,
+    against the plain version."""
+    plan = dispatch.get_plan(8, margin_bits=4)
+    u = _randn(cuda_device, *shape) * scale
+    u[0, 0, 0] = 0.0
+    c = _randn(cuda_device, 7) * np.exp(RNG.uniform(-30, 30))
+    bz, by, bx = tile
+    for out_rep in ("f64", "digits", "ds"):
+        got = ozaki_stencil.stencil7(u, c, plan, out_rep, bz=bz, by=by, bx=bx)
+        torch.testing.assert_close(got, ozaki_stencil.stencil7_ref(u, c, plan, out_rep),
+                                   rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_cuda_stencil_zero_grid_and_power_of_two_maximum(cuda_device):
+    plan = dispatch.get_plan(8, margin_bits=4)
+    c = torch.tensor([-6.0, 1, 1, 1, 1, 1, 1], dtype=torch.float64, device=cuda_device)
+    zero = torch.zeros((5, 6, 7), dtype=torch.float64, device=cuda_device)
+    for u in (zero, -zero, _randn(cuda_device, 5, 6, 7)):
+        if u is not zero and bool(u.any()):
+            u = u / u.abs().max() * 2.0 ** 40            # absmax exactly 2^40
+        for out_rep in ("f64", "digits", "ds"):
+            torch.testing.assert_close(
+                ozaki_stencil.stencil7(u, c, plan, out_rep, bz=8, by=4),
+                ozaki_stencil.stencil7_ref(u, c, plan, out_rep), rtol=0, atol=0)
+
+
+def _reduction_operand(n, lead=(), dtype=np.float64, special=False):
+    span = 200 if dtype == np.float64 else 30
+    x = (RNG.standard_normal(lead + (n,)) * np.exp(RNG.uniform(-span, span, lead + (n,))))
+    x = x.astype(dtype)
+    if special and n > 3:
+        x[..., 1], x[..., 2] = -0.0, 0.0
+        x.reshape(-1, n)[0, 3] = np.inf
+        x.reshape(-1, n)[-1, -1] = np.nan
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (256 ** 3, (), np.float64, False), (104 ** 3, (), np.float64, False),
+    (8192, (), np.float64, False), (100003, (), np.float64, True), (7, (), np.float64, False),
+    (1, (), np.float64, False), (513, (3, 5), np.float64, True), (70001, (3,), np.float32, True),
+    (300, (2,), np.float32, False)])
+def test_cuda_reduction_kernels_match_plain_route(cuda_device, case):
+    """neumaier_sum, compensated_dot and compensated_norm on the kernel route
+    against the plain route (torch tree, host fold), and each kernel against its
+    plain version, at the main paths' lengths (a 256^3 norm, an HPCG 104^3 dot,
+    a dense-CG dot), ragged, batched, in float32 and with special values."""
+    n, lead, dtype, special = case
+    x = torch.from_numpy(_reduction_operand(n, lead, dtype, special)).to(cuda_device)
+    y = torch.from_numpy(_reduction_operand(n, lead, dtype)).to(cuda_device)
+    def same(got, want):
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        np.testing.assert_array_equal(g, w)                      # NaN equals NaN here
+        np.testing.assert_array_equal(np.signbit(g[~np.isnan(g)]), np.signbit(w[~np.isnan(w)]))
+
+    for name in ("sum", "dot", "norm", "norm, axis -1"):
+        def fn(mode):
+            if name == "sum":
+                return compensated.neumaier_sum(x, mode=mode)
+            if name == "dot":
+                return compensated.compensated_dot(x, y, mode=mode)
+            return compensated.compensated_norm(x, axis=-1 if "axis" in name else None,
+                                                mode=mode)
+        before = (carry_fold.carry_fold.launches, carry_fold.block_tree.launches)
+        got = fn("kernel")
+        assert (carry_fold.carry_fold.launches, carry_fold.block_tree.launches) == \
+            (before[0] + 1, before[1] + 1)
+        same(got, fn("ref"))
+    lanes = x.reshape(-1, n)
+    bits, flags = carry_fold.norm_scale(lanes)
+    wb, wf = carry_fold.norm_scale_ref(lanes)
+    assert torch.equal(bits, wb) and torch.equal(flags, wf)
+    for block in (512, 256, 300, 7, 1, 1024, 4096):
+        for other, scale in ((None, None), (y.reshape(-1, n), None), (None, bits)):
+            got = carry_fold.block_tree(lanes, other, block, scale)
+            want = carry_fold.block_tree_ref(lanes, other, block, scale)
+            for g, w in zip(got, want):
+                same(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_reduction_kernel_route_raises_on_what_it_cannot_take(cuda_device):
+    x = torch.ones(1000, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError):
+        compensated.neumaier_sum(x, mode="kernel")
+    with pytest.raises(ValueError):
+        compensated.compensated_dot(x.cpu().double(), x.cpu().double(), mode="kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1024, 4096, 10000])
+def test_cuda_reduction_kernel_route_takes_any_block(cuda_device, block):
+    """Blocks past 512 elements (pieces of 512 joined in order) on the kernel
+    route against the plain route, batched and with special values."""
+    x = torch.from_numpy(_reduction_operand(100003, (3,), special=True)).to(cuda_device)
+    y = torch.from_numpy(_reduction_operand(100003, (3,))).to(cuda_device)
+    for fn in (lambda m: compensated.neumaier_sum(x, block=block, mode=m),
+               lambda m: compensated.compensated_dot(x, y, block=block, mode=m)):
+        got, want = fn("kernel").cpu().numpy(), fn("ref").cpu().numpy()
+        np.testing.assert_array_equal(got, want)                  # NaN equals NaN here
+        num = ~np.isnan(want)
+        np.testing.assert_array_equal(np.signbit(got[num]), np.signbit(want[num]))
+
+
+@pytest.mark.cuda
+def test_cuda_fold_chain_probe_adds_in_order(cuda_device):
+    out = torch.empty(1, dtype=torch.float64, device=cuda_device)
+    err = _build.library("dadd_chain").dadd_chain(
+        out.device.index, 0.1, 1000, out.data_ptr(),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    assert err == 0
+    s = 0.0
+    for _ in range(1000):
+        s += 0.1
+    assert float(out[0]) == s
+
+
+@pytest.mark.cuda
+def test_cuda_three_sweeps_and_iterations_routes_bitwise(cuda_device):
+    """Jacobi, the sparse CG and the dense CG with every kernel (stencil or
+    matvec, tree, fold) against every plain version, three steps each."""
+    f = _randn(cuda_device, 19, 23, 31)
+    kj = jacobi.jacobi_solve(f, omega=2.0 / 3.0, tol=0.0, maxiter=3, mode="kernel")
+    rj = jacobi.jacobi_solve(f, omega=2.0 / 3.0, tol=0.0, maxiter=3, mode="ref")
+    assert kj.history == rj.history and len(kj.history) == 4
+    torch.testing.assert_close(kj.u, rj.u, rtol=0, atol=0)
+    n = 30                                            # the 2-D Laplacian, 900 rows
+    idx = torch.arange(n * n, device=cuda_device)
+    i, j = idx // n, idx % n
+    nbr = torch.stack([idx, idx - n, idx + n, idx - 1, idx + 1], dim=1)
+    ok = torch.stack([i >= 0, i > 0, i < n - 1, j > 0, j < n - 1], dim=1)
+    col = torch.where(ok, nbr, idx[:, None]).to(torch.int32)
+    val = torch.where(ok, torch.tensor([4.0, -1, -1, -1, -1], dtype=torch.float64,
+                                       device=cuda_device), 0.0)
+    b = _randn(cuda_device, n * n)
+    kc = cg.cg_solve_bell(val, col, b, tol=0.0, maxiter=3, mode="kernel")
+    rc = cg.cg_solve_bell(val, col, b, tol=0.0, maxiter=3, mode="ref")
+    assert kc.history == rc.history and len(kc.history) == 4
+    a = _randn(cuda_device, 96, 96)
+    a = a @ a.T + 96 * torch.eye(96, dtype=torch.float64, device=cuda_device)
+    kd = cg.cg_solve_dense(a, b[:96], tol=0.0, maxiter=3, mode="kernel")
+    rd = cg.cg_solve_dense(a, b[:96], tol=0.0, maxiter=3, mode="ref")
+    assert kd.history == rd.history and len(kd.history) == 4
+    torch.testing.assert_close(kd.x, rd.x, rtol=0, atol=0)
 
 
 def _attention_case(dev, B, S, T, D, kind):

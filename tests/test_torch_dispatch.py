@@ -67,7 +67,13 @@ def test_auto_resolves_by_device_and_kernel_mode_needs_cuda():
         assert dispatch.choose_route(plan, kind, mode="ref",
                                      device=torch.device("cuda")) == "ref"
         assert dispatch.choose_route(plan, kind, mode="kernel") == "kernel"
-    assert dispatch.choose_route(plan, "reduce", mode="kernel") == "ref"
+    # the compensated reductions route like the kernels, with or without a plan
+    for p in (plan, None):
+        assert dispatch.choose_route(p, "reduce", device=torch.device("cpu")) == "ref"
+        assert dispatch.choose_route(p, "reduce", device=torch.device("cuda")) == "kernel"
+        assert dispatch.choose_route(p, "reduce", mode="kernel") == "kernel"
+        assert dispatch.choose_route(p, "reduce", mode="ref",
+                                     device=torch.device("cuda")) == "ref"
     assert dispatch.choose_route(dispatch.get_plan(64, substrate="fp8"), "gemm",
                                  mode="kernel") == "ref"
     a, b = _ab(8, 64, 4)
@@ -156,7 +162,7 @@ def test_plan_cache_and_tuning():
 
 def test_tuning_of_the_sparse_and_stencil_kinds():
     assert dispatch.get_tuning("spmv_bell", (1124864, 27)) == {"br": 128}
-    assert dispatch.get_tuning("stencil7", (256, 256, 256)) == {"bz": 64, "by": 4}
+    assert dispatch.get_tuning("stencil7", (256, 256, 256)) == {"bz": 32, "by": 8, "bx": 64}
     for kind in ("spmv_bell", "stencil7"):
         assert kind in dispatch.KINDS and kind in dispatch.AUTO_ROUTE
         assert dispatch.kernel_supported(dispatch.get_plan(8, margin_bits=4), kind)

@@ -121,27 +121,38 @@ def test_cuda_sources_agree_with_python_side():
     compiled = tuple(table.get(i, tail) for i in range(_build.MAX_R))
     assert compiled == moduli.DEFAULT_MODULI
     assert f"kMaxR = {_build.MAX_R};" in text
-    assert ctypes.sizeof(_build.GarnerParams) == 4 + 4 * 20 * 2 + 4 * 400 + 4 + 16 * 20 + 8 * 20
+    assert ctypes.sizeof(_build.GarnerParams) == (4 + 4 * 20 * 2 + 4 * 400 + 4 + 16 * 20
+                                                  + 8 * 20 + 16 * 20)
     p = _build.garner_params(dispatch.get_plan(8192))
     gc = dispatch.get_plan(8192).garner
     assert p.r == 16 and list(p.moduli[:16]) == list(moduli.DEFAULT_MODULI[:16])
     assert list(p.pref_f64[:16]) == list(gc.pref_f64)
     assert p.pref_mod[1 * 20 + 5] == gc.pref_mod[1, 5]
+    # digits_to_f64's split of each prefix product, as the plain version splits it
+    for j in range(16):
+        ph = np.float64(gc.pref_f64[j])
+        c = np.float64(2.0 ** 27 + 1.0) * ph
+        assert p.pref_f64_h[j] == c - (c - ph) and p.pref_f64_l[j] == ph - (c - (c - ph))
+    assert "double pref_f64_h[kMaxR];" in text and "double pref_f64_l[kMaxR];" in text
 
 
 def test_ctypes_argtypes_match_the_c_entry_points():
-    """Every source's entry point takes, in order, what ``_build.ENTRY_POINTS``
-    declares: c_int for an int, c_int64 for an int64_t, c_void_p for every
-    pointer and the stream."""
-    assert set(_build.ENTRY_POINTS) == set(_build.SOURCES)
-    for name in _build.SOURCES:
-        entry, argtypes = _build.ENTRY_POINTS[name]
+    """Every source's entry points take, in order, what ``_build.ENTRY_POINTS``
+    declares: c_int for an int, c_int64 for an int64_t, c_double for a double,
+    c_void_p for every pointer and the stream."""
+    assert set(_build.ENTRY_POINTS) == set(_build.SOURCES + _build.PROBES)
+    for name in _build.SOURCES + _build.PROBES:
         text = (pathlib.Path(_build.CSRC) / f"{name}.cu").read_text()
-        sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
-        assert sig, name
-        params = [p.strip() for p in sig.group(1).split(",")]
-        want = [ctypes.c_void_p if "*" in p else
-                ctypes.c_int64 if p.startswith("int64_t ") else ctypes.c_int for p in params]
-        assert all(p.startswith(("int ", "int64_t ", "const ", "void*", "int8_t*"))
-                   for p in params), params
-        assert argtypes == want, name
+        entries = _build.ENTRY_POINTS[name]
+        assert len(re.findall(r'extern "C" int ', text)) == len(entries), name
+        for entry, argtypes in entries:
+            sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
+            assert sig, entry
+            params = [p.strip() for p in sig.group(1).split(",")]
+            want = [ctypes.c_void_p if "*" in p else
+                    ctypes.c_int64 if p.startswith("int64_t ") else
+                    ctypes.c_double if p.startswith("double ") else ctypes.c_int for p in params]
+            assert all(p.startswith(("int ", "int64_t ", "double ", "const ", "void*", "int8_t*",
+                                     "int*", "double*"))
+                       for p in params), params
+            assert argtypes == want, entry
