@@ -100,6 +100,35 @@ Phases (each prints its results; any failed check makes the script exit 1):
          emulated logits against the fp64 policy's (rtol 1e-3, atol 1e-4).
          Prints decode ms/step, tokens/s, ``dispatch.attention``'s share of a
          decode step (CUDA events) at both cache lengths, and peak memory.
+  spectral the spectral dwarf's main paths, each with the seam kernels' counts
+         set to 0 just before and read just after, on the kernel route and then
+         on the reference route (bitwise): ``fft`` at n = 2^20 (Bailey twice),
+         ``fft`` of 8 x 4093 (prime: one dense 8186 x 8186 GEMM through
+         ``gemv_hilo``), ``fftn`` of a seeded complex128 256^3 grid (16 x 16 an
+         axis, GEMMs of 32 x 32 by 32 x 1,048,576 through ``gemm_hilo``),
+         ``poisson_solve_periodic`` at 256^3 (a manufactured solution),
+         ``poisson_solve_checked`` (its two compensated norms on the reduction
+         kernels) and ``poisson_solve_dirichlet`` on a 127^3 interior (odd
+         extension to 256^3).  Each against torch.fft in complex128, in units of
+         dft_error_bound(n) * max|X| (<= 2: both within one bound of the exact
+         transform); the solves within kappa * 6 * dft_error_bound(256) *
+         max|u|; times beside torch.fft's; launches of gemm_hilo and gemv_hilo.
+  fp8    the FP8 substrate's plane products (torch._scaled_mm, use_fast_accum
+         False) against exact sums, at k = 2^5 .. 2^16 and three shapes, random
+         and adversarial planes: one call over the whole contraction, and the
+         port's runs of FP8_CUDA_K_CHUNK in blocks of their own (0 differing
+         at every k).  The DGEMM 8192^3 through ``dispatch.matmul`` on the FP8
+         substrate, bitwise equal to the int8 kernel route, its error in u
+         against native FP64, its time beside the int8 route and torch.matmul
+         f64.  Ozaki-I's DGEMM 8192^3 (S = 8, 64 torch._int_mm products): its
+         error (<= 16 u) and time.
+  serve-fp8 yi-6b at its published widths and all 32 layers under ozaki2_fp8,
+         compute float32, the serve phase's weights: one request of 16 seeded
+         prompt tokens and 4 new tokens through ``ContinuousBatcher`` (the main
+         path: attention_fused launched layers x steps, no gemm_hilo), its
+         logits at every step bitwise equal to the same calls under
+         ozaki2_int8 and within rtol 1e-3, atol 1e-4 of the fp64 policy's; ms
+         per decode step, and one weight product by part.
 Then one JSON line describing each kernel, and the contract's last line.
 
 Tolerances: every kernel and route comparison is bitwise (0 differing
@@ -149,6 +178,7 @@ EARLIER_MS = {"gemm_hilo 8192^3": 84.360,
 FAILURES = []
 REDUCE_LAUNCHES = {}     # {main path: {reduction kernel: launches}}
 GEMM_LAUNCHES = {}       # gemm_hilo launches on each main path
+GEMV_LAUNCHES = {}       # gemv_hilo launches on each main path
 
 
 def check(ok, what):
@@ -1068,6 +1098,369 @@ def serve_phase(dev):
     return launches
 
 
+def spectral_case(name, run, oracle, bound, counts, reps):
+    """One spectral main path: ``run(mode)`` with the seam kernels' counts set to
+    0 just before the kernel route and read just after; the reference route
+    bitwise; the error against ``oracle`` (torch.fft, complex128) in units of
+    ``bound`` times its largest magnitude; times (CUDA events) of the kernel
+    route and of the oracle.  Returns (launches, kernel ms)."""
+    import torch
+
+    for k in counts:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(None)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counts}
+    want = run("ref")
+    d = n_diff(got, want)
+    check(d == 0, f"spectral: {name} kernel vs reference route, {d} of {got.numel()} "
+          f"elements differ")
+    del want
+    exact = oracle()
+    err = float((got - exact).abs().max()) / (bound * float(exact.abs().max()))
+    # both transforms lie within one bound of the exact one (tests/test_torch_spectral.py)
+    check(err <= 2.0, f"spectral: {name} error vs torch.fft complex128 {err:.4f} x "
+          f"(bound {bound:.3e} x max|X|) <= 2")
+    del got, exact
+    ms = time_ms(lambda: run(None), reps=reps)
+    lib_ms = time_ms(oracle, reps=5)
+    print(f"spectral: {name}: kernel route {ms:.3f} ms (first call {1e3 * first:.1f} ms), "
+          f"torch.fft {lib_ms:.3f} ms; launches {launches}", flush=True)
+    return launches, ms
+
+
+def spectral_phase(dev, gen):
+    """The spectral dwarf's main paths; returns their gemm_hilo and gemv_hilo launches."""
+    import torch
+
+    from repro_torch import spectral
+    from repro_torch.hpc import jacobi, poisson
+    from repro_torch.kernels import carry_fold, ozaki_gemm, ozaki_gemv
+
+    counts = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo)
+    total = {"gemm_hilo": 0, "gemv_hilo": 0}
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=dev, dtype=torch.float64),
+                             torch.randn(shape, generator=gen, device=dev, dtype=torch.float64))
+
+    def add(launches, want, what):
+        check(launches == want, f"spectral: {what} launched {want} ({launches})")
+        for k, v in launches.items():
+            total[k] += v
+
+    x = crandn(1 << 20)
+    got, _ = spectral_case(
+        f"fft n = 2^20 (Bailey twice: {spectral.choose_factors(1 << 20)}, then 32 x 32)",
+        lambda m: spectral.fft(x, mode=m), lambda: torch.fft.fft(x),
+        spectral.dft_error_bound(1 << 20), counts, reps=5)
+    add(got, {"gemm_hilo": 4, "gemv_hilo": 0}, "fft 2^20: two passes of two 64 x 64 GEMMs")
+    x = crandn(8, 4093)
+    got, _ = spectral_case(
+        "fft of 8 x 4093 (prime: one 8186 x 8186 by 8186 x 8 dense GEMM)",
+        lambda m: spectral.fft(x, mode=m), lambda: torch.fft.fft(x),
+        spectral.dft_error_bound(4093), counts, reps=2)
+    add(got, {"gemm_hilo": 0, "gemv_hilo": 1}, "fft 8 x 4093: one gemv_hilo")
+    x = crandn(GRID, GRID, GRID)
+    b256 = spectral.dft_error_bound(GRID)
+    got, fftn_ms = spectral_case(
+        f"fftn {GRID}^3 (each axis 16 x 16: GEMMs of 32 x 32 by 32 x {16 * GRID * GRID})",
+        lambda m: spectral.fftn(x, mode=m), lambda: torch.fft.fftn(x), 3 * b256, counts, reps=3)
+    add(got, {"gemm_hilo": 6, "gemv_hilo": 0}, "fftn 256^3: two GEMMs an axis")
+    busy, parts = profiled(lambda: spectral.fftn(x), 1)
+    print(f"spectral: device time of fftn {GRID}^3 {busy:.3f} ms (torch.profiler): "
+          f"{parts_text(parts)}", flush=True)
+    del x
+
+    # Poisson: a zero-mean u drawn on the card, f = its periodic Laplacian
+    shape = (GRID,) * 3
+    lam = torch.from_numpy(poisson.laplacian_eigenvalues(shape)).to(dev)
+    kappa = float(lam.abs().max() / lam.abs()[lam != 0].min())
+    u = torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+    u -= u.mean()
+    f = poisson.apply_periodic_laplacian(u)
+
+    def torch_solve(g):
+        inv = torch.where(lam != 0, 1.0 / torch.where(lam != 0, lam, 1.0), 0.0)
+        return torch.fft.ifftn(torch.fft.fftn(g) * inv).real
+
+    pbound = kappa * 3 * 2 * b256     # tests/test_torch_poisson.py's bound, relative to max|u|
+    got, per_ms = spectral_case(
+        f"poisson_solve_periodic {GRID}^3 (bound kappa {kappa:.1f} x 6 dft_error_bound(256))",
+        lambda m: poisson.poisson_solve_periodic(f, mode=m), lambda: torch_solve(f), pbound,
+        counts, reps=3)
+    add(got, {"gemm_hilo": 12, "gemv_hilo": 0}, "periodic solve: fftn and ifftn")
+    up = poisson.poisson_solve_periodic(f)
+    e_exact = float((up - u).abs().max())
+    e_torch = float((torch_solve(f) - u).abs().max())
+    check(e_exact <= 1e-10, f"spectral: periodic solve max|u - u_exact| {e_exact:.3e} (the "
+          f"same solve on torch.fft {e_torch:.3e}) <= 1e-10 (tests/test_poisson.py's bound)")
+    del up
+    cf = (carry_fold.norm_scale, carry_fold.block_tree, carry_fold.carry_fold)
+    for k in cf:
+        k.launches = 0
+    res = poisson.poisson_solve_checked(f)
+    norms = {k.__name__: k.launches for k in cf}
+    res_r = poisson.poisson_solve_checked(f, mode="ref")
+    check(res.residual == res_r.residual and n_diff(res.u, res_r.u) == 0 and res.residual <= 1e-12,
+          f"spectral: checked solve's relative residual {res.residual:.3e} <= 1e-12, routes "
+          f"bitwise ({res_r.residual:.3e})")
+    check(norms == {"norm_scale": 2, "block_tree": 2, "carry_fold": 2},
+          f"spectral: the checked solve's two compensated norms on the reduction kernels "
+          f"({norms})")
+    chk_ms = time_ms(lambda: poisson.poisson_solve_checked(f), reps=2)
+    del res, res_r, f, u
+    fi = torch.randn((GRID // 2 - 1,) * 3, generator=gen, device=dev, dtype=torch.float64)
+    got, dir_ms = spectral_case(
+        f"poisson_solve_dirichlet {GRID // 2 - 1}^3 interior (odd extension to {GRID}^3)",
+        lambda m: poisson.poisson_solve_dirichlet(fi, mode=m),
+        lambda: torch_solve(poisson.odd_extension(fi))[1:GRID // 2, 1:GRID // 2, 1:GRID // 2],
+        pbound, counts, reps=2)
+    add(got, {"gemm_hilo": 12, "gemv_hilo": 0}, "Dirichlet solve: fftn and ifftn")
+    ud = poisson.poisson_solve_dirichlet(fi)
+    back = float((jacobi.apply_dirichlet_laplacian(ud) - fi).abs().max())
+    check(back <= 1e-9, f"spectral: Dirichlet u through apply_dirichlet_laplacian (stencil7) "
+          f"returns f within {back:.3e} <= 1e-9 (tests/test_poisson.py's bound)")
+    print(f"spectral: ms per solve at {GRID}^3 (CUDA events): periodic {per_ms:.3f}, checked "
+          f"{chk_ms:.3f}, Dirichlet {dir_ms:.3f}; fftn {fftn_ms:.3f}", flush=True)
+    del fi, ud, lam
+    torch.cuda.empty_cache()
+    return total
+
+
+# The exactness sweep's (rows, columns, largest log2 k), k from 2^5: a decode
+# step's padded rows against a weight's width, a square tile, and the DGEMM's.
+FP8_SWEEP_SHAPES = ((16, 4096, 16), (1024, 1024, 16), (N, N, 12))
+
+
+def fp8_phase(dev, gen):
+    """FP8 exactness sweep, the DGEMM on the FP8 substrate, and Ozaki-I."""
+    import torch
+
+    from repro_torch.core import dispatch, ozaki1, ozaki2
+
+    # ---------------------------------------------------- exactness by chunk
+    # integer planes as the FP8 substrate forms them (halves in [-8, 8], the
+    # Karatsuba mid plane within [-16, 16]), random and adversarial: constant odd
+    # products need every bit of their sums, and runs of 16 then of +-1 add small
+    # products to large partial sums
+    def planes(case, rows, k, cols):
+        def draw(shape, kdim, const):
+            if case == "random +-8":
+                t = torch.randint(-8, 9, shape, generator=gen, device=dev)
+            elif case == "random +-16":
+                t = torch.randint(-16, 17, shape, generator=gen, device=dev)
+            elif case == "all +16":
+                t = torch.full(shape, 16, device=dev)
+            elif case == "all 7 x 9":
+                t = torch.full(shape, const[0], device=dev)
+            elif case == "all 13 x 15":
+                t = torch.full(shape, const[1], device=dev)
+            else:   # "16 / +-1 by 32": runs of 32 entries, 16 and random -1, 0, 1 in turn
+                t = torch.randint(-1, 2, shape, generator=gen, device=dev)
+                big = (torch.arange(k, device=dev) // 32) % 2 == 0
+                t.index_fill_(kdim, big.nonzero().squeeze(1), 16)
+            return t.to(torch.int32)
+        return draw((rows, k), 1, (7, 13)), draw((k, cols), 0, (9, 15))
+
+    def one_call(a, b):
+        """One torch._scaled_mm over the whole contraction, no blocks."""
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        return torch._scaled_mm(a.to(torch.float8_e4m3fn),
+                                b.t().contiguous().to(torch.float8_e4m3fn).t(),
+                                scale_a=one, scale_b=one, out_dtype=torch.float32,
+                                use_fast_accum=False)
+
+    cases = ("random +-8", "random +-16", "all +16", "all 7 x 9", "all 13 x 15",
+             "16 / +-1 by 32")
+    chunk = ozaki2.FP8_CUDA_K_CHUNK
+    raw_exact, port_exact = set(), True
+    for rows, cols, max_log2k in FP8_SWEEP_SHAPES:
+        for e in range(5, max_log2k + 1):
+            k = 1 << e
+            raw, port = {}, {}
+            for case in cases:
+                pa, pb = planes(case, rows, k, cols)
+                want = torch.matmul(pa.double(), pb.double())     # exact: below 2^53
+                raw[case] = float((one_call(pa, pb).double() - want).abs().max())
+                port[case] = float((ozaki2._dot_fp8(pa, pb).double() - want).abs().max())
+                del pa, pb, want
+            if not any(raw.values()):
+                raw_exact.add((rows, k))
+            port_exact &= not any(port.values())
+            print(f"fp8: exactness at {rows} x {k} x {cols}, max |FP8 product - exact| "
+                  f"(torch._scaled_mm, use_fast_accum=False): one call " +
+                  ", ".join(f"{c} {v:.0f}" for c, v in raw.items()) +
+                  f"; the port's runs of {chunk} " +
+                  ", ".join(f"{c} {v:.0f}" for c, v in port.items()), flush=True)
+    exact_ks = sorted({k for r, k in raw_exact if all((r2, k) in raw_exact
+                                                      for r2, _, _ in FP8_SWEEP_SHAPES)})
+    check(all((r, chunk) in raw_exact for r, _, _ in FP8_SWEEP_SHAPES),
+          f"fp8: one torch._scaled_mm call exact in every case at the committed chunk "
+          f"{chunk}; chunks exact in every case and shape {exact_ks}")
+    check(port_exact, f"fp8: the port's FP8 plane product (runs of {chunk} in blocks of "
+          f"{ozaki2._FP8_CUDA_BLOCK}) exact in every case, shape and k up to "
+          f"2^{max(m for _, _, m in FP8_SWEEP_SHAPES)}")
+
+    # ----------------------------------------------------- DGEMM on FP8
+    a = torch.randn((N, N), generator=gen, device=dev, dtype=torch.float64)
+    b = torch.randn((N, N), generator=gen, device=dev, dtype=torch.float64)
+    a[7] *= 1e-300
+    c8 = dispatch.matmul(a, b)
+    cf = dispatch.matmul(a, b, substrate="fp8")
+    d = n_diff(cf, c8)
+    check(d == 0, f"fp8: DGEMM {N}^3 on the FP8 substrate vs the int8 kernel route, {d} "
+          f"differing elements")
+    err = rel_err_u(cf, a, b)
+    err_tiny = rel_err_u(cf[7:8], a[7:8], b)
+    check(err <= 16 and err_tiny <= 16, f"fp8: DGEMM {N}^3 on the FP8 substrate error vs "
+          f"native FP64 {err:.3f} u (row at 1e-300: {err_tiny:.3f} u) <= 16 u")
+    del c8, cf
+    plan = dispatch.get_plan(N, substrate="fp8")
+    t_fp8 = time_ms(lambda: dispatch.matmul(a, b, substrate="fp8"), reps=2)
+    t_int8 = time_ms(lambda: dispatch.matmul(a, b), reps=3)
+    t_f64 = time_ms(lambda: torch.matmul(a, b), reps=5)
+    pa = torch.randint(-16, 17, (N, N), generator=gen, device=dev, dtype=torch.int32)
+    t_one = time_ms(lambda: ozaki2._dot_fp8(pa, pa), reps=5)
+    del pa
+    print(f"fp8: DGEMM {N}^3 through dispatch.matmul, r = {plan.r}, {3 * plan.r} FP8 products "
+          f"(CUDA events): FP8 substrate {t_fp8:.3f} ms, int8 kernel route {t_int8:.3f} ms, "
+          f"torch.matmul f64 {t_f64:.3f} ms; one FP8 plane product with its operands' "
+          f"conversion {t_one:.3f} ms (bound "
+          f"{2.0 * N ** 3 / INT8_OPS_PER_S * 1e3:.3f} ms at 1979 T operations/s)", flush=True)
+
+    # --------------------------------------------------------- Ozaki-I
+    p1 = ozaki1.make_plan(N)
+    check((p1.slice_bits, p1.num_slices, p1.num_gemms) == (7, 8, 64),
+          f"fp8: Ozaki-I plan at k = {N}: b = {p1.slice_bits}, S = {p1.num_slices}, "
+          f"{p1.num_gemms} int8 products (Ozaki-II: {plan.r})")
+    c1 = ozaki1.emulated_matmul(a, b)
+    e1 = rel_err_u(c1, a, b)
+    e1_tiny = rel_err_u(c1[7:8], a[7:8], b)
+    check(e1 <= 16 and e1_tiny <= 16, f"fp8: Ozaki-I DGEMM {N}^3 error vs native FP64 "
+          f"{e1:.3f} u (row at 1e-300: {e1_tiny:.3f} u) <= 16 u (tests/test_ozaki1.py's bound)")
+    del c1
+    t1 = time_ms(lambda: ozaki1.emulated_matmul(a, b), reps=2)
+    s8, s8t = ozaki1._slice_operands(
+        *(torch.randint(-64, 65, (1, N, N), generator=gen, device=dev, dtype=torch.int8)
+          for _ in range(2)))
+    t_int_mm = time_ms(lambda: ozaki1._dot_int8(s8[0], s8t[0], N, N), reps=5)
+    print(f"fp8: Ozaki-I DGEMM {N}^3, S = {p1.num_slices}, {p1.num_gemms} torch._int_mm "
+          f"products (CUDA events): {t1:.3f} ms; one slice product {t_int_mm:.3f} ms; "
+          f"Ozaki-II int8 kernel route {t_int8:.3f} ms", flush=True)
+    del a, b, s8, s8t
+    torch.cuda.empty_cache()
+
+
+SERVE_FP8_PROMPT = 16
+SERVE_FP8_NEW = 4
+
+
+def serve_fp8_phase(dev):
+    """yi-6b under ozaki2_fp8; returns the attention_fused launches of its main path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import dispatch, ozaki2
+    from repro_torch.kernels import carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import ContinuousBatcher, Request, ServeEngine
+
+    cfg = registry.get_config("yi-6b", policy_name="ozaki2_fp8", compute_dtype="float32")
+    L = cfg.num_layers
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    state = dict(model.state_dict())
+    rng = np.random.default_rng(SEED + 2)
+    prompt = rng.integers(0, cfg.vocab_size, SERVE_FP8_PROMPT)
+    engine = ServeEngine(model, batch_slots=1, max_seq=SERVE_FP8_PROMPT + SERVE_FP8_NEW)
+    steps, real_call = [], engine._decode_call
+
+    def call(toks, pos):
+        t = time.perf_counter()
+        out = real_call(toks, pos)
+        torch.cuda.synchronize()
+        steps.append((np.array(toks), pos, out.cpu(), time.perf_counter() - t))
+        return out
+
+    engine._decode_call = call
+    batcher = ContinuousBatcher(engine)
+    batcher.submit(Request(uid=0, prompt=prompt, max_new_tokens=SERVE_FP8_NEW))
+    counts = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo, ozaki_attention.attention_fused,
+              carry_fold.carry_fold)
+    for k in counts:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = batcher.run_to_completion()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counts}
+    n = len(steps)
+    check(n == SERVE_FP8_PROMPT + SERVE_FP8_NEW - 1 and len(done) == 1 and
+          len(done[0].generated) == SERVE_FP8_NEW,
+          f"serve-fp8: one request of {SERVE_FP8_PROMPT} prompt tokens and {SERVE_FP8_NEW} new "
+          f"tokens in {n} decode steps -> {done[0].generated if done else None}")
+    check(launches["attention_fused"] == L * n and launches["gemm_hilo"] == 0 and
+          launches["gemv_hilo"] == 0,
+          f"serve-fp8: attention_fused launched layers x steps = {L} x {n} times (attention "
+          f"keeps the int8 substrate), no gemm_hilo or gemv_hilo launch: every weight product "
+          f"on the FP8 substrate ({launches})")
+    fp8_ms = 1e3 * sum(s[3] for s in steps) / n
+
+    # one weight product of a decode step by part (CUDA events): wq of layer 0
+    w = model.layers[0].tree()["mixer"]["wq"]["w"].double()
+    x = torch.randn((1, w.shape[0]), device=dev, dtype=torch.float64)
+    plan = dispatch.get_plan(w.shape[0], substrate="fp8")
+    ares, _ = ozaki2.decompose(x, plan, -1)
+    bres, _ = ozaki2.decompose(w, plan, 0)
+    cres = ozaki2.modular_matmul(ares, bres, plan)
+    parts = {"whole": time_ms(lambda: dispatch.matmul(x, w, plan=plan), reps=3),
+             "Phase 1 and residues of w": time_ms(lambda: ozaki2.decompose(w, plan, 0), reps=3),
+             "FP8 products (split, planes, _scaled_mm, combine)":
+                 time_ms(lambda: ozaki2.modular_matmul(ares, bres, plan), reps=3),
+             "Garner": time_ms(lambda: ozaki2.garner_reconstruct(cres, plan), reps=3),
+             "int8 kernel route": time_ms(lambda: dispatch.matmul(x, w), reps=3)}
+    print(f"serve-fp8: one decode-step weight product 1 x {w.shape[0]} x {w.shape[1]} (wq), "
+          f"r = {plan.r}, by part (CUDA events): " +
+          "; ".join(f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
+    del w, x, ares, bres, cres
+
+    def replay(policy_name):
+        """The same decode calls, tokens and positions under another policy."""
+        cfg2 = registry.get_config("yi-6b", policy_name=policy_name, compute_dtype="float32")
+        eng = ServeEngine(Model(cfg2).load(state), batch_slots=1, max_seq=engine.max_seq)
+        outs, times = [], []
+        for toks, pos, _, _ in steps:
+            t = time.perf_counter()
+            outs.append(eng._decode_call(toks, pos).cpu())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return outs, 1e3 * sum(times) / len(times)
+
+    outs8, int8_ms = replay("ozaki2_int8")
+    diffs = [n_diff(s[2], o) for s, o in zip(steps, outs8)]
+    check(diffs == [0] * n, f"serve-fp8: logits of all {n} steps under ozaki2_fp8 vs "
+          f"ozaki2_int8 (its weight products on gemm_hilo) at {L} of {L} layers, differing "
+          f"elements {diffs}")
+    outs64, fp64_ms = replay("fp64")
+    got = torch.stack([s[2] for s in steps])
+    want = torch.stack(outs64)
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
+          f"serve-fp8: logits of all {n} steps within rtol 1e-3, atol 1e-4 of the fp64 "
+          f"policy's (max |diff| {err:.3e})")
+    print(f"serve-fp8: {cfg.name}, {L} layers, ozaki2_fp8, compute float32: {n} decode steps in "
+          f"{t_all:.1f} s, {fp8_ms:.3f} ms a step (mean, host clock; ozaki2_int8 "
+          f"{int8_ms:.3f}, fp64 {fp64_ms:.3f}); launches {launches}", flush=True)
+    del model, engine, batcher, state
+    torch.cuda.empty_cache()
+    return launches["attention_fused"]
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1098,6 +1491,7 @@ def main():
     # ---------------------------------------------------------------- setup
     card = smi_line()
     print(f"card: {card}", flush=True)
+    print(f"setup: torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     reports = _build.build(_build.SOURCES + _build.PROBES)
     print(f"setup: built {sorted(reports) or 'nothing (cached)'} in "
@@ -1136,6 +1530,7 @@ def main():
                 "gemv_hilo": ozaki_gemv.gemv_hilo.launches}
     REDUCE_LAUNCHES["dense CG"] = reduce_counts(carry_fold)
     GEMM_LAUNCHES["DGEMM"] = launches["gemm_hilo"]
+    GEMV_LAUNCHES["dense CG"] = launches["gemv_hilo"]
     print(f"main: dispatch.matmul {N}^3 {t_gemm * 1e3:.1f} ms (first call); "
           f"cg_solve_dense n={N}: {res_k.iters} iterations, converged={res_k.converged}; "
           f"launches {launches}", flush=True)
@@ -1278,6 +1673,12 @@ def main():
     serve_launches = serve_phase(dev)
     attention_kernel["launches"] = serve_launches["attention_fused"]
     GEMM_LAUNCHES["serve"] = serve_launches["gemm_hilo"]
+    torch.cuda.empty_cache()
+    spectral_launches = spectral_phase(dev, gen)
+    GEMM_LAUNCHES["spectral"] = spectral_launches["gemm_hilo"]
+    GEMV_LAUNCHES["spectral"] = spectral_launches["gemv_hilo"]
+    fp8_phase(dev, gen)
+    attention_kernel["launches"] += serve_fp8_phase(dev)
 
     # -------------------------------------------------------------- summary
     v_bound, v_by = bound(N, N, 1, plan.r)
@@ -1291,13 +1692,14 @@ def main():
         {"name": "gemv_hilo", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ozaki_gemv.cu",
          "replaces": "src/repro/kernels/ozaki_gemv.py:61",
-         "launches": launches["gemv_hilo"], "max_abs_err": gemv[1]["err"],
+         "launches": sum(GEMV_LAUNCHES.values()), "max_abs_err": gemv[1]["err"],
          "ms": gemv[1]["ms"], "plain_ms": gemv[1]["plain_ms"], "bound_ms": v_bound,
          "bound_by": v_by, "library_ms": gemv[1]["library_ms"]},
         stencil_kernel, spmv_kernel, *reduce_kernels, attention_kernel,
     ]
     print("kernels: " + ", ".join(f"{k['name']} {k['launches']} launches" for k in kernels)
-          + f" on the main paths (gemm_hilo {GEMM_LAUNCHES})", flush=True)
+          + f" on the main paths (gemm_hilo {GEMM_LAUNCHES}; gemv_hilo {GEMV_LAUNCHES})",
+          flush=True)
     names = ["gemm_hilo", "gemv_hilo", "stencil7", "spmv_bell", "norm_scale", "block_tree",
              "carry_fold", "attention_fused"]
     check([k["name"] for k in kernels] == names and

@@ -13,7 +13,10 @@ here:
      ``GEMV_MAX_B`` columns, ``gemv_hilo`` otherwise), with the operands
      zero-padded to the kernels' tiles; and ``ref``, the unfused
      ``ozaki2.emulated_matmul``.  Zero padding is exact (padded rows and
-     columns contribute zero residues).  ``spmv`` (Blocked-ELL, kind
+     columns contribute zero residues).  The kernels implement the int8
+     substrate; a plan on the FP8 substrate takes the reference route on every
+     device, as in the reference (its planes' products run on the FP8 tensor
+     cores through ``torch._scaled_mm`` on CUDA).  ``spmv`` (Blocked-ELL, kind
      ``spmv_bell``) and ``stencil7`` route between ``ozaki_spmv.spmv_bell`` /
      ``ozaki_stencil.stencil7`` and their plain versions ``spmv_bell_ref`` /
      ``stencil7_ref``.  ``attention`` routes between the fused online-softmax
@@ -266,8 +269,9 @@ def _validate_kind(kind: str) -> str:
 
 
 def kernel_supported(plan: Optional[ozaki2.Plan], kind: str = "gemm") -> bool:
-    """The Ozaki kernels implement the int8 residue substrate; the reduction
-    kernels (``reduce``) take no plan."""
+    """The Ozaki kernels implement the int8 residue substrate (the FP8 substrate
+    takes the reference route on every device); the reduction kernels
+    (``reduce``) take no plan."""
     _validate_kind(kind)
     if kind == "reduce":
         return True
@@ -319,8 +323,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
     """Emulated FP64-accurate C = A @ B through the dispatch seam.
 
     a: (m, k), b: (k, n) on one device; returns float64 (m, n) on that device,
-    whatever the route.  Callers needing the kernels' digits/ds output
-    representations use ``repro_torch.kernels.ops`` directly.
+    whatever the route.  ``substrate`` ("int8" | "fp8") picks the cached plan's
+    substrate when ``plan`` is None; both give the same bits.  Callers needing
+    the kernels' digits/ds output representations use ``repro_torch.kernels.ops``
+    directly.
     """
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul takes (m, k) x (k, n), got {tuple(a.shape)} x "

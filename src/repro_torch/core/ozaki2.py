@@ -3,15 +3,20 @@
 Pipeline (paper Phases 1–3):
   1. ``scale_to_int``  : Ã = ⌊D A⌉, B̃ = ⌊B E⌉ with exact power-of-two diagonal scaling.
   2. ``modular_matmul``: C⁽ⁱ⁾ = (Ã mod mᵢ)(B̃ mod mᵢ) mod mᵢ for r pairwise-coprime
-     moduli.  The reference's int8 × int8 → int32 product is a float64 matmul of
-     the residues here: every partial sum is an integer below k·2¹⁴ < 2⁵³, so it is
-     exact on the CPU and on CUDA (torch has no int32 matmul on CUDA).
+     moduli.  INT8 substrate: the reference's int8 × int8 → int32 product is a
+     float64 matmul of the residues here: every partial sum is an integer below
+     k·2¹⁴ < 2⁵³, so it is exact on the CPU and on CUDA.  FP8 substrate: each
+     balanced residue is split into two exact 4-bit E4M3 halves and multiplied
+     with a Karatsuba 3-product schedule (``fp8_quant``); the planes' products are
+     a float32 matmul on the CPU and ``torch._scaled_mm`` on the FP8 tensor
+     cores on CUDA, exact because every partial sum is an integer below 2²⁴ and
+     the tensor cores sum at most FP8_CUDA_K_CHUNK products at a time.
   3. ``garner_reconstruct``: balanced-digit Garner mixed-radix reconstruction,
      followed by the exact power-of-two unscale D⁻¹·E⁻¹.
 
 This module is the unfused reference route of the dispatch seam; the Hopper
-kernels in ``repro_torch.kernels`` compute the same bits.  Only the int8 substrate
-is ported; the FP8 substrate raises ``NotImplementedError``.
+kernels in ``repro_torch.kernels`` compute the same bits (int8 substrate).  Both
+substrates give the same integers mod m, so the same bits.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import fp8_quant
 from repro_torch.core import moduli as moduli_lib
 from repro_torch.core import numerics, splitting
 
@@ -30,6 +37,21 @@ Substrate = str  # "int8" | "fp8"
 # The reference accumulates balanced int8 residue products in int32, exact for
 # k <= 2**31 / 128**2; the contraction is chunked above this.
 _INT8_K_CHUNK = 1 << 17
+# FP8 substrate: per-plane integer products are at most 16**2, so float32 sums
+# are exact below 2**24 for k <= 2**16.
+_FP8_K_CHUNK = 1 << 16
+# The H100's FP8 tensor cores (``torch._scaled_mm`` with use_fast_accum=False)
+# sum products in a stage narrower than float32 and move the sums to float32
+# every 128 k.  Measured there: runs of 64 plane products are exact in every
+# case tried, runs of 128 are not (constant odd products of 13·15 lose 32 in
+# each 128; chip_smoke.py's fp8 phase, PERF.md §6).  So each run of
+# FP8_CUDA_K_CHUNK products gets a block of _FP8_CUDA_BLOCK k of its own, the
+# rest zeros, and the float32 sums of the blocks stay exact integers below 2**24
+# (k <= _FP8_K_CHUNK).  Zeros add nothing, so the chunking changes no bit.
+FP8_CUDA_K_CHUNK = 64
+_FP8_CUDA_BLOCK = 128
+# torch._scaled_mm takes dimensions in multiples of 16.
+_FP8_MM_GRANULE = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,13 +126,82 @@ def _chunked_modular_dot_int8(ares: torch.Tensor, bres: torch.Tensor,
     return acc.to(torch.int32)
 
 
+def _fp8_blocked(x: torch.Tensor, rows: int, k_axis: int) -> torch.Tensor:
+    """Integer plane x (|x| <= 16) with its contraction along ``k_axis`` as a
+    float8_e4m3fn (rows, nb·_FP8_CUDA_BLOCK) matrix, rows zero-padded: run j of
+    FP8_CUDA_K_CHUNK contraction entries fills the head of block j, zeros the rest."""
+    xt = x if k_axis == 1 else x.t()
+    r, k = xt.shape
+    c = FP8_CUDA_K_CHUNK
+    nb = -(-k // c)
+    if nb * c != k:
+        xt = F.pad(xt, (0, nb * c - k))
+    out = torch.zeros((rows, nb, _FP8_CUDA_BLOCK), dtype=torch.float8_e4m3fn, device=x.device)
+    out[:r, :, :c] = xt.unflatten(1, (nb, c))
+    return out.flatten(1)
+
+
+def _scaled_mm_2d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) x (k, n) integer planes on the FP8 tensor cores, float32 out: A
+    row-major, B column-major, both in the blocked layout of ``_fp8_blocked``."""
+    m, n = a.shape[0], b.shape[1]
+    g = _FP8_MM_GRANULE
+    one = torch.ones((), dtype=torch.float32, device=a.device)
+    out = torch._scaled_mm(_fp8_blocked(a, -(-m // g) * g, 1),
+                           _fp8_blocked(b, -(-n // g) * g, 0).t(),
+                           scale_a=one, scale_b=one, out_dtype=torch.float32,
+                           use_fast_accum=False)
+    return out[:m, :n]
+
+
+def _dot_fp8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact float32 contraction of integer planes (last axis of a, next-to-last of b).
+
+    CPU: a float32 matmul.  CUDA: float8_e4m3fn operands on the FP8 tensor cores,
+    each problem of a batch on its own.
+    """
+    if a.device.type != "cuda":
+        return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    if a.ndim == 2 and b.ndim == 2:
+        return _scaled_mm_2d(a, b)
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(lead + a.shape[-2:]).reshape((-1,) + a.shape[-2:])
+    b3 = b.expand(lead + b.shape[-2:]).reshape((-1,) + b.shape[-2:])
+    out = torch.stack([_scaled_mm_2d(x, y) for x, y in zip(a3, b3)])
+    return out.reshape(lead + out.shape[-2:])
+
+
+def _chunked_modular_dot_fp8(ares: torch.Tensor, bres: torch.Tensor,
+                             m: int) -> torch.Tensor:
+    """FP8-substrate modular product: Karatsuba over 4-bit halves.
+
+    x·y = 256·H + 16·(Mid − H − L) + L with H = x_h·y_h, L = x_l·y_l,
+    Mid = (x_h+x_l)·(y_h+y_l).  Each plane's product over a chunk of at most
+    _FP8_K_CHUNK is an exact integer below 2²⁴ (on CUDA, summed from runs of
+    FP8_CUDA_K_CHUNK, ``_fp8_blocked``); chunks are reduced mod m and summed mod
+    m, so the chunking changes no bit.
+    """
+    k = ares.shape[-1]
+    a_hi, a_lo = fp8_quant.fp8_split(ares)
+    b_hi, b_lo = fp8_quant.fp8_split(bres)
+    a_mid, b_mid = a_hi + a_lo, b_hi + b_lo
+    acc = None
+    for s in range(0, k, _FP8_K_CHUNK):
+        e = min(s + _FP8_K_CHUNK, k)
+        H, L, Mid = (_dot_fp8(x[..., s:e], y[..., s:e, :]).to(torch.int32)
+                     for x, y in ((a_hi, b_hi), (a_lo, b_lo), (a_mid, b_mid)))
+        part = fp8_quant.fp8_karatsuba_combine(H, Mid, L, m)
+        acc = part if acc is None else splitting.balanced_mod(acc + part, m)
+    return acc
+
+
 def modular_matmul(ares: torch.Tensor, bres: torch.Tensor, plan: Plan) -> torch.Tensor:
     """Stacked modular products C⁽ⁱ⁾, int32 (r, m, n), balanced representatives."""
-    if plan.substrate != "int8":
-        raise NotImplementedError(
-            f"substrate {plan.substrate!r} is not ported; only 'int8' is")
-    outs = [_chunked_modular_dot_int8(ares[i], bres[i], m)
-            for i, m in enumerate(plan.moduli)]
+    if plan.substrate not in ("int8", "fp8"):
+        raise ValueError(f"substrate must be 'int8' or 'fp8', got {plan.substrate!r}")
+    fn = (_chunked_modular_dot_int8 if plan.substrate == "int8"
+          else _chunked_modular_dot_fp8)
+    outs = [fn(ares[i], bres[i], m) for i, m in enumerate(plan.moduli)]
     return torch.stack(outs, dim=0)
 
 

@@ -12,8 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import compensated, dispatch, ozaki2, splitting  # noqa: E402
-from repro_torch.hpc import cg, jacobi  # noqa: E402
+from repro_torch import spectral  # noqa: E402
+from repro_torch.core import compensated, dispatch, ozaki1, ozaki2, splitting  # noqa: E402
+from repro_torch.core.policy import Policy  # noqa: E402
+from repro_torch.hpc import cg, jacobi, poisson  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv, ozaki_spmv, ozaki_stencil)
@@ -580,3 +582,127 @@ def test_cuda_yi6b_width_decode_step_routes_bitwise(cuda_device):
                 out[m], caches[m] = model.decode_step(caches[m], tokens, pos)
         torch.testing.assert_close(out["kernel"], out["ref"], rtol=0, atol=0)
         assert bool(torch.isfinite(out["kernel"]).all())
+
+
+def _crandn(device, *shape):
+    x = RNG.standard_normal(shape) + 1j * RNG.standard_normal(shape)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis", [((120, 3), 0), ((2, 1024), -1), ((97, 4), 0),
+                                        ((4093,), 0), ((5, 256), 1)])
+def test_cuda_fft_routes_bitwise(cuda_device, shape, axis):
+    """Kernel route (gemm_hilo above 16 columns, gemv_hilo otherwise) against the
+    reference route on the card, and within two dft_error_bound of torch.fft."""
+    x = _crandn(cuda_device, *shape)
+    before = ozaki_gemm.gemm_hilo.launches + ozaki_gemv.gemv_hilo.launches
+    got = spectral.fft(x, axis=axis)
+    assert ozaki_gemm.gemm_hilo.launches + ozaki_gemv.gemv_hilo.launches > before
+    torch.testing.assert_close(got, spectral.fft(x, axis=axis, mode="ref"), rtol=0, atol=0)
+    want = torch.fft.fft(x, dim=axis)
+    n = shape[axis]
+    assert float((got - want).abs().max()) <= 2 * spectral.dft_error_bound(n) * float(
+        want.abs().max())
+    back = spectral.ifft(got, axis=axis)
+    torch.testing.assert_close(back, spectral.ifft(got, axis=axis, mode="ref"), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_fftn_and_poisson_routes_bitwise(cuda_device):
+    x = _crandn(cuda_device, 16, 24, 20)
+    torch.testing.assert_close(spectral.fftn(x), spectral.fftn(x, mode="ref"), rtol=0, atol=0)
+    f, u = poisson.manufactured_rhs((16, 20, 24), seed=4)
+    f = f.to(cuda_device)
+    got = poisson.poisson_solve_periodic(f)
+    torch.testing.assert_close(got, poisson.poisson_solve_periodic(f, mode="ref"), rtol=0,
+                               atol=0)
+    assert float((got.cpu() - u).abs().max()) <= 1e-10
+    res = poisson.poisson_solve_checked(f)
+    assert res.residual <= 1e-12
+    assert res.residual == poisson.poisson_solve_checked(f, mode="ref").residual
+    fi = torch.from_numpy(RNG.standard_normal((7, 9, 11))).to(cuda_device)
+    ud = poisson.poisson_solve_dirichlet(fi)
+    torch.testing.assert_close(ud, poisson.poisson_solve_dirichlet(fi, mode="ref"), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(jacobi.apply_dirichlet_laplacian(ud), fi, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(16, 64), (128, 128), (5, 40)])
+@pytest.mark.parametrize("k", [64, 4096, 1 << 16])
+def test_cuda_fp8_plane_products_exact(cuda_device, rows, cols, k):
+    """The port's FP8 plane product (runs of FP8_CUDA_K_CHUNK in their own
+    blocks) is exact where one call over the whole contraction is not: constant
+    odd products need every bit of their sums."""
+    ones = torch.ones((rows, k), dtype=torch.int32)
+    cases = [(torch.randint(-16, 17, (rows, k)), torch.randint(-16, 17, (k, cols))),
+             (13 * ones, torch.full((k, cols), 15)),
+             (torch.full((rows, k), 16), torch.full((k, cols), 16)),
+             (torch.randint(-8, 9, (rows, k)), torch.full((k, cols), -8))]
+    for a, b in cases:
+        a, b = a.to(cuda_device, torch.int32), b.to(cuda_device, torch.int32)
+        want = torch.matmul(a.double(), b.double())
+        got = ozaki2._dot_fp8(a, b)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(64, 96, 80), (130, 200, 5), (7, 33, 17),
+                                 (33, (1 << 16) + 48, 20)])
+def test_cuda_fp8_dgemm_equals_int8(cuda_device, mkn):
+    """The FP8 substrate (reference route, torch._scaled_mm) and the int8 kernel
+    route give the same bits; the last shape has k above the committed chunk."""
+    m, k, n = mkn
+    a = torch.from_numpy(RNG.standard_normal((m, k))).to(cuda_device)
+    a[0] *= 1e-300
+    b = torch.from_numpy(RNG.standard_normal((k, n))).to(cuda_device)
+    got = dispatch.matmul(a, b, substrate="fp8")
+    torch.testing.assert_close(got, dispatch.matmul(a, b), rtol=0, atol=0)
+    torch.testing.assert_close(got, dispatch.matmul(a, b, mode="ref"), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_chunks_change_no_bit(cuda_device, monkeypatch):
+    a = torch.from_numpy(RNG.standard_normal((24, 200))).to(cuda_device)
+    b = torch.from_numpy(RNG.standard_normal((200, 40))).to(cuda_device)
+    plan = dispatch.get_plan(200, substrate="fp8")
+    whole = ozaki2.emulated_matmul(a, b, plan)
+    monkeypatch.setattr(ozaki2, "FP8_CUDA_K_CHUNK", 48)
+    torch.testing.assert_close(ozaki2.emulated_matmul(a, b, plan), whole, rtol=0, atol=0)
+    x = torch.from_numpy(RNG.standard_normal((2, 3, 5, 200))).to(cuda_device)   # batched
+    torch.testing.assert_close(ozaki2.emulated_matmul(x, b, plan),
+                               ozaki2.emulated_matmul(x, b, dispatch.get_plan(200)), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(1, 1, 1), (3, 13, 5), (17, 8, 8), (20, 37, 9), (300, 257, 31)])
+def test_cuda_ozaki1_int_mm_padding(cuda_device, mkn):
+    """torch._int_mm takes more than 16 rows and multiples of 8: the slices are
+    zero-padded, and the product is exact, so the card gives the CPU's bits."""
+    m, k, n = mkn
+    a8 = torch.from_numpy(RNG.integers(-64, 65, (m, k)).astype(np.int8)).to(cuda_device)
+    b8 = torch.from_numpy(RNG.integers(-64, 65, (k, n)).astype(np.int8)).to(cuda_device)
+    pa, pb = ozaki1._slice_operands(a8[None], b8[None])
+    assert pa.shape[1] > 16 and pa.shape[2] % 8 == 0 and pb.shape[2] % 8 == 0
+    assert pb.stride(1) == 1                     # B column-major
+    got = ozaki1._dot_int8(pa[0], pb[0], m, n)
+    assert tuple(got.shape) == (m, n) and got.dtype == torch.float64
+    torch.testing.assert_close(got, torch.matmul(a8.double(), b8.double()), rtol=0, atol=0)
+    a = torch.from_numpy(RNG.standard_normal((m, k)))
+    b = torch.from_numpy(RNG.standard_normal((k, n)))
+    torch.testing.assert_close(ozaki1.emulated_matmul(a.to(cuda_device), b.to(cuda_device)).cpu(),
+                               ozaki1.emulated_matmul(a, b), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_emulated_policies(cuda_device):
+    x = torch.from_numpy(RNG.standard_normal((2, 3, 96)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy(RNG.standard_normal((96, 40)).astype(np.float32)).to(cuda_device)
+    int8 = Policy("ozaki2_int8").dot(x, w)
+    torch.testing.assert_close(Policy("ozaki2_fp8").dot(x, w), int8, rtol=0, atol=0)
+    oz1 = Policy("ozaki1_int8").dot(x, w)
+    torch.testing.assert_close(oz1.cpu(), Policy("ozaki1_int8").dot(x.cpu(), w.cpu()), rtol=0,
+                               atol=0)
