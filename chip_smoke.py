@@ -129,6 +129,26 @@ Phases (each prints its results; any failed check makes the script exit 1):
          logits at every step bitwise equal to the same calls under
          ozaki2_int8 and within rtol 1e-3, atol 1e-4 of the fp64 policy's; ms
          per decode step, and one weight product by part.
+  vjp    the emulated dots' gradient at yi-6b's widths: x 16 x 4096 through the
+         MLP (gate and up 4096 x 11008, down 11008 x 4096, ``layers.mlp_apply``)
+         and the unembedding (4096 x 64000, ``layers.unembed_apply``), float64
+         activations and seeded weights, loss = sum(logits * c), under autograd.
+         ozaki2_int8 on the kernel route (the main path, after a warm-up run:
+         gemm_hilo 4 launches in the forward and 8 in the backward) and on the
+         reference route (no launch; gradients of x and every weight bitwise
+         equal); each product's dA and dB within 16 u of |g||Bᵀ| and |Aᵀ||g|
+         (native FP64 from the same g); ozaki2_fp8 bitwise equal to ozaki2_int8;
+         ozaki1_int8 within 16 u a product; both chains within VJP_CHAIN_TOL of
+         the fp64 policy's.  Forward and backward times per policy.
+  tme    the TME model on the card: under ``telemetry_scope("counters")`` on the
+         kernel route, DGEMM 8192^3 (3 calls), GEMV 8192^2 x 1, stencil7 256^3,
+         HPCG 104^3 SpMV, attention at causal prefill 32 x 512 x 512 and decode
+         64 x 1 x 4096, compensated_norm at 256^3 (5 calls each), each call also
+         between CUDA events of the phase's own: telemetry's time within 10% of
+         them per kind, the kernels' launches counted, no event pair resolved
+         before the snapshot, ``telemetry_scope("off")`` recording nothing; the
+         report's table for chip H100 and, per kind, the measured seam time, this
+         run's kernel time and the TME prediction (beta = 1) with their ratios.
 Then one JSON line describing each kernel, and the contract's last line.
 
 Tolerances: every kernel and route comparison is bitwise (0 differing
@@ -137,6 +157,7 @@ r = 16 on).  Times are CUDA-event medians after a warm-up.
 """
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -175,7 +196,16 @@ EARLIER_MS = {"gemm_hilo 8192^3": 84.360,
               "jacobi sweep 256^3": 16.623, "carry_fold 256^3 norm": 0.652,
               "compensated_norm 256^3": 6.653}
 
+VJP_ROWS = 16            # the rows of x in the vjp phase (a batch of tokens)
+# The vjp phase's chain tolerance: each emulated product is within 16 u of its
+# |A||B| (checked alone); through silu and the four products the gradients of x
+# and of every weight are held within 1e-11 of the fp64 policy's, normwise
+# (max |difference| / max |fp64 gradient|), some 10^4 u of room for the
+# cancellations of sums over up to 64,000 terms.
+VJP_CHAIN_TOL = 1e-11
+
 FAILURES = []
+KERNEL_MS = {}           # kernel times of this run that the tme phase reads
 REDUCE_LAUNCHES = {}     # {main path: {reduction kernel: launches}}
 GEMM_LAUNCHES = {}       # gemm_hilo launches on each main path
 GEMV_LAUNCHES = {}       # gemv_hilo launches on each main path
@@ -892,6 +922,7 @@ def attention_phase(dev, gen):
               flush=True)
         out[name] = t
     del timed, cases
+    KERNEL_MS["attention decode"] = out[f"decode 64 x 1 x {LONG_CTX}, ring mask"]["ms"]
     t = out["causal prefill 32 x 512 x 512"]
     return {"name": "attention_fused", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ozaki_attention.cu",
@@ -1461,6 +1492,262 @@ def serve_fp8_phase(dev):
     return launches["attention_fused"]
 
 
+class RecordedPolicy:
+    """A precision policy that keeps, for each of its products C = A B, the
+    operands A and B, the gradient g that reaches C, and the gradients dA and
+    dB it sends back (each product's own, before any accumulation)."""
+
+    def __init__(self, name):
+        from repro_torch.core.policy import Policy
+
+        self.policy = Policy(name)
+        self.products = []
+
+    def dot(self, x, w):
+        rec = {"A": x.detach(), "B": w.detach()}
+        xa, wb = x.view_as(x), w.view_as(w)
+        xa.register_hook(lambda g: rec.__setitem__("dA", g))
+        wb.register_hook(lambda g: rec.__setitem__("dB", g))
+        out = self.policy.dot(xa, wb)
+        out.register_hook(lambda g: rec.__setitem__("g", g))
+        self.products.append(rec)
+        return out
+
+
+def scheme_error(c, x, y):
+    """The error of an emulated product c = x y against native FP64 from the same
+    x (m, k) and y (k, n): max |c - x y| / (|x| |y|) in u, and max |c - x y| over
+    the schemes' bound, u (α_i ||y_j||_1 + ||x_i||_1 β_j) + 16 u (|x| |y|)_ij.
+    α_i and β_j are the largest |x| in row i and |y| in column j: Phase 1
+    scales each row and column by a power of two that puts its largest
+    element in [2^52, 2^53) and rounds the rest to integers there, so each
+    element moves by at most u times its row's or column's largest; both
+    schemes then form the exact product of the rounded operands (Ozaki-I
+    accumulates its S² slice products in float64), and the 16 u term covers
+    the final rounding, that accumulation and native FP64's own error.  The
+    first term is what a short contraction of widely ranging values exposes:
+    there |x| |y| can be far below it."""
+    import torch
+
+    err = torch.matmul(x, y)
+    err.sub_(c).abs_()
+    absxy = torch.matmul(x.abs(), y.abs())
+    rel = float((err / absxy).max()) / U
+    bound = absxy.mul_(16 * U)
+    ax, ay = x.abs(), y.abs()
+    bound.add_(ax.amax(dim=1, keepdim=True) * ay.sum(dim=0, keepdim=True), alpha=U)
+    bound.add_(ax.sum(dim=1, keepdim=True) * ay.amax(dim=0, keepdim=True), alpha=U)
+    return rel, float(err.div_(bound).max())
+
+
+def product_errors(products):
+    """Each product's dA = g Bᵀ and dB = Aᵀ g against ``scheme_error``."""
+    return [(scheme_error(p["dA"], p["g"], p["B"].T), scheme_error(p["dB"], p["A"].T, p["g"]))
+            for p in products]
+
+
+def vjp_phase(dev):
+    """yi-6b's weight products at full width under autograd; returns gemm_hilo's
+    launches on the kernel route's timed run."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import dispatch
+    from repro_torch.core.policy import Policy
+    from repro_torch.kernels import ozaki_gemm, ozaki_gemv
+    from repro_torch.models import layers
+
+    cfg = registry.get_config("yi-6b")
+    d, f, vocab = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    f64 = torch.float64
+    mlp = layers.mlp_init(gen, d, f, f64, act=cfg.mlp_act)
+    table = layers.embed_init(gen, vocab, d, f64)["table"]
+    weights = {"wi_gate": mlp["wi_gate"]["w"], "wi_up": mlp["wi_up"]["w"],
+               "wo": mlp["wo"]["w"], "table": table}
+    x0 = torch.randn((VJP_ROWS, d), generator=gen, device=dev, dtype=f64)
+    c = torch.randn((VJP_ROWS, vocab), generator=gen, device=dev, dtype=torch.float32)
+    counts = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo)
+    print(f"vjp: yi-6b's MLP ({d} -> {f} gate and up, {f} -> {d} down) and unembedding "
+          f"({d} x {vocab}), x {VJP_ROWS} x {d}, float64; loss = sum(logits * c)", flush=True)
+
+    def run(name, mode=None, record=False):
+        pol = RecordedPolicy(name) if record else Policy(name)
+        x = x0.detach().requires_grad_(True)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in weights.items()}
+        params = {k: {"w": leaves[k]} for k in ("wi_gate", "wi_up", "wo")}
+        with dispatch.mode_scope(mode):
+            for k in counts:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = layers.mlp_apply(params, x, pol, act=cfg.mlp_act)
+            loss = (layers.unembed_apply({"table": leaves["table"]}, h, pol) * c).sum()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd = {k.__name__: k.launches for k in counts}
+            loss.backward()            # the CUDA backward runs on autograd's thread
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            bwd = {k.__name__: k.launches - fwd[k.__name__] for k in counts}
+        grads = {"x": x.grad, **{k: v.grad for k, v in leaves.items()}}
+        return {"grads": grads, "products": pol.products if record else None,
+                "fwd_ms": 1e3 * (t1 - t0),
+                "bwd_ms": 1e3 * (t2 - t1), "fwd": fwd, "bwd": bwd}
+
+    def diff(ga, gb):
+        return {k: n_diff(ga[k], gb[k]) for k in ga}
+
+    def rel(ga, gb):
+        return max(float((ga[k] - gb[k]).abs().max() / gb[k].abs().max()) for k in ga)
+
+    def show(name, r):
+        print(f"vjp: {name}: forward {r['fwd_ms']:.3f} ms, backward {r['bwd_ms']:.3f} ms "
+              f"(host clock, synchronised); launches forward {r['fwd']}, backward "
+              f"{r['bwd']}", flush=True)
+
+    run("ozaki2_int8")                                    # warm-up at these shapes
+    k8 = run("ozaki2_int8", record=True)
+    show("ozaki2_int8, kernel route", k8)
+    launches = k8["fwd"]["gemm_hilo"] + k8["bwd"]["gemm_hilo"]
+    check(k8["fwd"] == {"gemm_hilo": 4, "gemv_hilo": 0} and
+          k8["bwd"] == {"gemm_hilo": 8, "gemv_hilo": 0},
+          f"vjp: gemm_hilo launched 4 times in the forward and 8 in the backward "
+          f"({k8['fwd']}, {k8['bwd']})")
+    names = ["wi_up", "wi_gate", "wo", "unembed"]
+
+    def check_products(policy, errs):
+        text = ", ".join(f"{n} dA {a[0]:.3f} u ({a[1]:.4f} of the bound), dB {b[0]:.3f} u "
+                         f"({b[1]:.4f})" for n, (a, b) in zip(names, errs))
+        check(len(errs) == 4 and all(a[0] <= 16 for a, _ in errs),
+              f"vjp: {policy}, each product's dA within 16 u of |g||Bᵀ| (contractions of "
+              f"4096 to 64000; native FP64 from the same g): {text}")
+        check(all(a[1] <= 1 and b[1] <= 1 for a, b in errs),
+              f"vjp: {policy}, each product's dA and dB within the schemes' bound "
+              f"(scheme_error; dB contracts over the {VJP_ROWS} rows of x)")
+
+    check_products("ozaki2_int8", product_errors(k8["products"]))
+    k8["products"] = None
+    r8 = run("ozaki2_int8", mode="ref")
+    show("ozaki2_int8, reference route", r8)
+    check(r8["fwd"] == r8["bwd"] == {"gemm_hilo": 0, "gemv_hilo": 0},
+          "vjp: the reference route launches no kernel, forward or backward")
+    d8 = diff(k8["grads"], r8["grads"])
+    check(not any(d8.values()), f"vjp: kernel vs reference route, gradients of x and every "
+          f"weight bitwise equal (differing elements {d8})")
+    del r8
+    fp8 = run("ozaki2_fp8")
+    show("ozaki2_fp8 (the FP8 substrate, reference route)", fp8)
+    d8 = diff(fp8["grads"], k8["grads"])
+    check(not any(d8.values()), f"vjp: ozaki2_fp8 gradients bitwise equal to ozaki2_int8's "
+          f"(differing elements {d8})")
+    del fp8
+    o1 = run("ozaki1_int8", record=True)
+    show("ozaki1_int8", o1)
+    check_products("ozaki1_int8", product_errors(o1["products"]))
+    o1["products"] = None
+    n64 = run("fp64")
+    show("fp64 (torch.matmul float64)", n64)
+    for name, r in (("ozaki2_int8", k8), ("ozaki1_int8", o1)):
+        e = rel(r["grads"], n64["grads"])
+        check(e <= VJP_CHAIN_TOL, f"vjp: {name} chain, max |grad - fp64 policy's grad| / "
+              f"max |fp64 policy's grad| = {e:.3e} <= {VJP_CHAIN_TOL:g} for x and every weight")
+    return launches
+
+
+def tme_phase(dev, gen, kernel_ms):
+    """The TME instrument on the card: every kind under counters telemetry on the
+    kernel route, checked against the phase's own CUDA events; returns the
+    launches of every kernel in it."""
+    import torch
+
+    from repro_torch.core import compensated, dispatch, tme
+    from repro_torch.hpc import jacobi
+    from repro_torch.kernels import (carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv,
+                                     ozaki_spmv, ozaki_stencil)
+    from repro_torch.obs import report, telemetry as obs
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+
+    a, b, x1 = randn(N, N), randn(N, N), randn(N, 1)
+    u = randn(GRID, GRID, GRID)
+    c = jacobi.laplacian_coeffs(device=dev)
+    a_val, a_col = hpcg_operator(HPCG_N, dev)
+    xs = randn(HPCG_N ** 3)
+    pq = [randn(32, 512, ATTN_D) for _ in range(3)]
+    causal = torch.tril(torch.ones((512, 512), dtype=torch.int8, device=dev))
+    dq, dk, dv = randn(64, 1, ATTN_D), randn(64, LONG_CTX, ATTN_D), randn(64, LONG_CTX, ATTN_D)
+    ring = (torch.arange(LONG_CTX, device=dev) <= LONG_CTX - 2).to(torch.int8)[None, None] \
+        .expand(64, 1, LONG_CTX)
+    # (name, kind, dims, call, repetitions)
+    cases = [
+        ("gemm", "gemm", (N, N, N), lambda: dispatch.matmul(a, b), 3),
+        ("gemv", "gemv", (N, N, 1), lambda: dispatch.matmul(a, x1), 5),
+        ("stencil7", "stencil7", (GRID,) * 3, lambda: dispatch.stencil7(u, c), 5),
+        ("spmv_bell", "spmv_bell", (HPCG_N ** 3, 27, HPCG_N ** 3),
+         lambda: dispatch.spmv(a_val, a_col, xs), 5),
+        ("attention prefill", "attention", (32, 512, ATTN_D, 512),
+         lambda: dispatch.attention(*pq, mask=causal), 5),
+        ("attention decode", "attention", (64, 1, ATTN_D, LONG_CTX),
+         lambda: dispatch.attention(dq, dk, dv, mask=ring), 5),
+        ("reduce", "reduce", (GRID ** 3,), lambda: compensated.compensated_norm(u), 5),
+    ]
+    for _, _, _, fn, _ in cases:                        # warm-up, outside the counts
+        fn()
+    kernels = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo, ozaki_stencil.stencil7,
+               ozaki_spmv.spmv_bell, ozaki_attention.attention_fused, carry_fold.norm_scale,
+               carry_fold.block_tree, carry_fold.carry_fold)
+    for k in kernels:
+        k.launches = 0
+    obs.reset()
+    torch.cuda.synchronize()
+    events = {}
+    with obs.telemetry_scope("counters"):
+        for name, _, _, fn, reps in cases:
+            for _ in range(reps):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                events.setdefault(name, []).append((e0, e1))
+        pending = len(obs._pending)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    check(pending == sum(reps for *_, reps in cases),
+          f"tme: counters mode left every CUDA event pair unresolved until the snapshot "
+          f"({pending} pending)")
+    snap = obs.snapshot()
+    want = {"gemm_hilo": 3, "gemv_hilo": 5, "stencil7": 5, "spmv_bell": 5,
+            "attention_fused": 10, "norm_scale": 5, "block_tree": 5, "carry_fold": 5}
+    check(launches == want, f"tme: kernel launches {launches}")
+    with obs.telemetry_scope("off"):
+        dispatch.matmul(a, x1)
+        compensated.compensated_norm(u)
+    check(obs.snapshot()["counters"] == snap["counters"] and not obs._pending,
+          "tme: telemetry_scope('off') records nothing")
+    print(report.render(report.table_rows(snap), chip=snap["chip"]), flush=True)
+    counters = {(ct["kind"], ct["shape_class"], ct["route"]): ct for ct in snap["counters"]}
+    rows = []
+    for name, kind, dims, _, reps in cases:
+        ct = counters.get((kind, dispatch.shape_class(dims), "kernel"))
+        own_us = 1e3 * sum(e0.elapsed_time(e1) for e0, e1 in events[name])
+        tel_us = ct["us"] if ct else 0.0
+        ok = ct is not None and ct["calls"] == reps and abs(tel_us - own_us) <= 0.1 * own_us
+        check(ok, f"tme: {name}: telemetry {tel_us / reps:.3f} us a call against the phase's "
+              f"CUDA events {own_us / reps:.3f} us ({reps} calls), within 10%")
+        tme_us = ct["tme_us"] / reps if ct else float("nan")
+        k_us = 1e3 * kernel_ms[name]
+        rows.append((name, tel_us / reps, k_us, tme_us))
+        print(f"tme: {name} {dims}: measured seam {tel_us / reps:.3f} us, kernel {k_us:.3f} us "
+              f"(this run's kernel phase), TME (H100, kernel route, beta = 1) {tme_us:.3f} us; "
+              f"measured / TME {tel_us / reps / tme_us:.3f}, kernel / TME "
+              f"{k_us / tme_us:.3f}", flush=True)
+    check(snap["chip"] == tme.DEFAULT_CHIP.name == "H100", f"tme: chip model {snap['chip']}")
+    obs.reset()
+    return launches
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1679,6 +1966,18 @@ def main():
     GEMV_LAUNCHES["spectral"] = spectral_launches["gemv_hilo"]
     fp8_phase(dev, gen)
     attention_kernel["launches"] += serve_fp8_phase(dev)
+    gc.collect()       # the serve phases' engines and models sit in reference cycles
+    torch.cuda.empty_cache()
+    GEMM_LAUNCHES["vjp"] = vjp_phase(dev)
+    torch.cuda.empty_cache()
+    KERNEL_MS.update({"gemm": gemm_ms, "gemv": gemv[1]["ms"], "stencil7": stencil_kernel["ms"],
+                      "spmv_bell": spmv_kernel["ms"], "attention prefill": attention_kernel["ms"],
+                      "reduce": sum(k["ms"] for k in reduce_kernels)})
+    tme_launches = tme_phase(dev, gen, KERNEL_MS)
+    GEMM_LAUNCHES["tme"] = tme_launches["gemm_hilo"]
+    GEMV_LAUNCHES["tme"] = tme_launches["gemv_hilo"]
+    for entry in (stencil_kernel, spmv_kernel, attention_kernel, *reduce_kernels):
+        entry["launches"] += tme_launches[entry["name"]]
 
     # -------------------------------------------------------------- summary
     v_bound, v_by = bound(N, N, 1, plan.r)

@@ -23,6 +23,10 @@ Every ``two_sum``/``two_prod`` is exact and only the compensation stream is
 summed in working precision, which gives the Ogita-Rump Sum2/Dot2 bound for any
 blocking.  The element-wise ``*_scan`` forms are the parity references.
 
+With telemetry on (``repro_torch.obs.telemetry``) each public call records one
+``reduce`` event, labelled ``sum2``, ``dot2`` or ``nrm2``, with the route it took
+(``kernel`` or ``ref``); the norm's inner dot records none of its own.
+
 ``compensated_norm`` scales by exact powers of two derived from IEEE bit fields
 (``Tensor.view`` to the same-width integer type), as the reference does to stay
 immune to flush-to-zero arithmetic; torch does not flush denormals, but the bit
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import dispatch
 from repro_torch.core.numerics import fast_two_sum, sqrt, two_prod, two_sum  # noqa: F401
+from repro_torch.obs import telemetry as obs
 
 __all__ = ["two_sum", "two_prod", "fast_two_sum", "neumaier_sum",
            "compensated_dot", "compensated_norm", "neumaier_sum_scan",
@@ -119,9 +124,28 @@ def neumaier_sum(x: torch.Tensor, axis: int = -1, block: Optional[int] = None,
     """Compensated (twice-working-precision) sum along ``axis`` (batched)."""
     x = torch.movedim(x, _normalize_axis(axis, x.ndim), -1)
     block = _resolve_block(x.shape[-1], block)
-    if dispatch.kernel_route(None, "reduce", mode, x.device):
-        return _kernel_reduce(x, None, block)
-    return _blocked_sum2(x, torch.zeros_like(x), block)
+    kernel = dispatch.kernel_route(None, "reduce", mode, x.device)
+    rec = obs.op_start("reduce", (x.shape[-1],), "kernel" if kernel else "ref", None, x,
+                       label="sum2")
+    if kernel:
+        out = _kernel_reduce(x, None, block)
+    else:
+        out = _blocked_sum2(x, torch.zeros_like(x), block)
+    return obs.op_end(rec, out)
+
+
+def _dot_impl(x: torch.Tensor, y: torch.Tensor, ax: int, block: Optional[int],
+              kernel: bool) -> torch.Tensor:
+    """Blocked Dot2 along axis ``ax`` on the given route, recording nothing: shared
+    by ``compensated_dot`` (which records its event) and ``compensated_norm``
+    (which records its own, one event a public call)."""
+    x = torch.movedim(x, ax, -1)
+    y = torch.movedim(y, ax, -1)
+    block = _resolve_block(x.shape[-1], block)
+    if kernel:
+        return _kernel_reduce(x, y, block)
+    p, e = two_prod(x, y)
+    return _blocked_sum2(p, e, block)
 
 
 def compensated_dot(x: torch.Tensor, y: torch.Tensor, axis: int = -1,
@@ -135,13 +159,10 @@ def compensated_dot(x: torch.Tensor, y: torch.Tensor, axis: int = -1,
     if x.shape != y.shape:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs {tuple(y.shape)}")
     ax = _normalize_axis(axis, x.ndim)
-    x = torch.movedim(x, ax, -1)
-    y = torch.movedim(y, ax, -1)
-    block = _resolve_block(x.shape[-1], block)
-    if dispatch.kernel_route(None, "reduce", mode, x.device):
-        return _kernel_reduce(x, y, block)
-    p, e = two_prod(x, y)
-    return _blocked_sum2(p, e, block)
+    kernel = dispatch.kernel_route(None, "reduce", mode, x.device)
+    rec = obs.op_start("reduce", (x.shape[ax],), "kernel" if kernel else "ref", None,
+                       x, y, label="dot2")
+    return obs.op_end(rec, _dot_impl(x, y, ax, block, kernel))
 
 
 # IEEE-754 layouts: dtype -> (bit-int dtype, mantissa bits, exponent bias,
@@ -195,9 +216,13 @@ def compensated_norm(x: torch.Tensor, axis: Optional[int] = None,
     else:
         ax = _normalize_axis(axis, x.ndim)
     it, mb, eb, _ = _ieee_layout(x.dtype)
-    if dispatch.kernel_route(None, "reduce", mode, x.device):
+    kernel = dispatch.kernel_route(None, "reduce", mode, x.device)
+    rec = obs.op_start("reduce", (x.shape[ax],), "kernel" if kernel else "ref", None, x,
+                       label="nrm2")
+    if kernel:
         xm = torch.movedim(x, ax, -1)
-        return _kernel_reduce(xm, None, _resolve_block(xm.shape[-1], None), norm=True)
+        return obs.op_end(rec, _kernel_reduce(xm, None, _resolve_block(xm.shape[-1], None),
+                                              norm=True))
     finite = torch.isfinite(x)
     has_nan = torch.isnan(x).any(dim=ax)
     has_inf = torch.isinf(x).any(dim=ax)
@@ -210,7 +235,7 @@ def compensated_norm(x: torch.Tensor, axis: Optional[int] = None,
     es = elog.amax(dim=ax, keepdim=True)
     es = torch.where(es == sentinel, torch.zeros_like(es), es)   # all-zero: scale 1
     xs = m * _pow2(e - es, x.dtype)
-    r = sqrt(compensated_dot(xs, xs, ax, mode="ref"))   # in [1, ~2*sqrt(n)]
+    r = sqrt(_dot_impl(xs, xs, ax, None, kernel=False))   # in [1, ~2*sqrt(n)]
     es = es.squeeze(ax)
     # r * 2**es as two exact power-of-two multiplies ...
     half = torch.div(es, 2, rounding_mode="floor")
@@ -222,7 +247,7 @@ def compensated_norm(x: torch.Tensor, axis: Optional[int] = None,
     k = torch.round(torch.where(tiny, t, torch.zeros_like(t))).to(it)
     nrm = torch.where(tiny, k.view(x.dtype), big)
     nrm = torch.where(has_inf, torch.full_like(nrm, float("inf")), nrm)
-    return torch.where(has_nan, torch.full_like(nrm, float("nan")), nrm)
+    return obs.op_end(rec, torch.where(has_nan, torch.full_like(nrm, float("nan")), nrm))
 
 
 # ---------------------------------------------------------------------------

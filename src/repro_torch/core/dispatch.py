@@ -41,6 +41,13 @@ here:
      for gemm/gemv, the CUDA blocks of spmv_bell and stencil7, attention's q
      and key blocks, and the block size of the compensated reductions
      (``reduce_block``).
+
+  5. **Telemetry** — with recording on (``repro_torch.obs.telemetry``), every
+     entry point records its kind, shape class, the route taken, the plan, its
+     measured time and the TME prediction of the same op (``attention`` with a
+     ``prefill`` (S > 1) or ``decode`` (S = 1) label), and the plan and tuning
+     caches count their hits and misses.  ``dot`` records nothing of its own:
+     it is one ``matmul``.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import ozaki2
+from repro_torch.obs import telemetry as obs
 
 MODES = ("auto", "ref", "kernel")
 KINDS = ("gemm", "gemv", "spmv_bell", "stencil7", "attention")
@@ -128,6 +136,11 @@ def _cached_plan(k: int, payload_bits: int, substrate: str, r: Optional[int],
 def get_plan(k: int, payload_bits: int = 53, substrate: str = "int8",
              r: Optional[int] = None, margin_bits: int = 2) -> ozaki2.Plan:
     """Cache-resolved Plan for contractions of length k (Garner pre-primed)."""
+    if obs.enabled():
+        before = _cached_plan.cache_info().misses
+        plan = _cached_plan(int(k), int(payload_bits), substrate, r, margin_bits)
+        obs.record_cache("plan", _cached_plan.cache_info().misses == before)
+        return plan
     return _cached_plan(int(k), int(payload_bits), substrate, r, margin_bits)
 
 
@@ -198,6 +211,11 @@ def get_tuning(kind: str, dims: Sequence[int]) -> Dict[str, Any]:
     """Tuning parameters for ``kind`` at this shape class (memoised; read-only)."""
     if kind not in TUNE_KINDS:
         raise ValueError(f"tuning kind must be one of {TUNE_KINDS}, got {kind!r}")
+    if obs.enabled():
+        before = _cached_tuning.cache_info().misses
+        tuning = _cached_tuning(kind, shape_class(dims))
+        obs.record_cache("tune", _cached_tuning.cache_info().misses == before)
+        return tuning
     return _cached_tuning(kind, shape_class(dims))
 
 
@@ -335,9 +353,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
         raise ValueError(f"operands on different devices: {a.device} vs {b.device}")
     if plan is None:
         plan = get_plan(a.shape[1], payload_bits, substrate)
-    if kernel_route(plan, _matmul_kind(b.shape[1]), mode, a.device):
-        return _kernel_matmul(a, b, plan)
-    return ozaki2.emulated_matmul(a, b, plan, out_dtype=torch.float64)
+    kind = _matmul_kind(b.shape[1])
+    kernel = kernel_route(plan, kind, mode, a.device)
+    rec = obs.op_start(kind, (a.shape[0], a.shape[1], b.shape[1]),
+                       "kernel" if kernel else "ref", plan, a, b)
+    if kernel:
+        out = _kernel_matmul(a, b, plan)
+    else:
+        out = ozaki2.emulated_matmul(a, b, plan, out_dtype=torch.float64)
+    return obs.op_end(rec, out)
 
 
 def dot(x: torch.Tensor, w: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
@@ -365,11 +389,16 @@ def spmv(a_val: torch.Tensor, a_col: torch.Tensor, x: torch.Tensor,
 
     if plan is None:
         plan = get_plan(a_val.shape[1], margin_bits=4)
-    if kernel_route(plan, "spmv_bell", mode, x.device):
+    kernel = kernel_route(plan, "spmv_bell", mode, x.device)
+    rec = obs.op_start("spmv_bell", (a_val.shape[0], a_val.shape[1], x.shape[0]),
+                       "kernel" if kernel else "ref", plan, a_val, a_col, x)
+    if kernel:
         if br is None:
             br = int(get_tuning("spmv_bell", a_val.shape)["br"])
-        return _spmv.spmv_bell(a_val, a_col, x, plan, out_rep=out_rep, br=br)
-    return _spmv.spmv_bell_ref(a_val, a_col, x, plan, out_rep=out_rep)
+        out = _spmv.spmv_bell(a_val, a_col, x, plan, out_rep=out_rep, br=br)
+    else:
+        out = _spmv.spmv_bell_ref(a_val, a_col, x, plan, out_rep=out_rep)
+    return obs.op_end(rec, out)
 
 
 def stencil7(u: torch.Tensor, c: torch.Tensor, plan: Optional[ozaki2.Plan] = None,
@@ -388,12 +417,16 @@ def stencil7(u: torch.Tensor, c: torch.Tensor, plan: Optional[ozaki2.Plan] = Non
 
     if plan is None:
         plan = get_plan(8, margin_bits=4)
-    if kernel_route(plan, "stencil7", mode, u.device):
+    kernel = kernel_route(plan, "stencil7", mode, u.device)
+    rec = obs.op_start("stencil7", u.shape, "kernel" if kernel else "ref", plan, u, c)
+    if kernel:
         tune = get_tuning("stencil7", u.shape)
         bz = int(tune["bz"]) if bz is None else bz
-        return _stencil.stencil7(u, c, plan, out_rep=out_rep, bz=bz, by=int(tune["by"]),
-                                 bx=int(tune["bx"]))
-    return _stencil.stencil7_ref(u, c, plan, out_rep=out_rep)
+        out = _stencil.stencil7(u, c, plan, out_rep=out_rep, bz=bz, by=int(tune["by"]),
+                                bx=int(tune["bx"]))
+    else:
+        out = _stencil.stencil7_ref(u, c, plan, out_rep=out_rep)
+    return obs.op_end(rec, out)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -415,7 +448,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``plan_pv`` the length-bkv probability-value contraction; both resolve
     from the plan cache when omitted.  bq and bkv come from the tuning table,
     rounded to ``SUBLANE`` and capped at S and T rounded up (bq also at the
-    kernel's largest tile for D).
+    kernel's largest tile for D).  Telemetry labels the op ``prefill`` (S > 1)
+    or ``decode`` (S = 1).
     """
     from repro_torch.kernels import ozaki_attention as _attn  # deferred: kernels import core
 
@@ -432,6 +466,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         plan_qk = get_plan(D, payload_bits, substrate)
     if plan_pv is None:
         plan_pv = get_plan(bkv, payload_bits, substrate)
+    kernel = kernel_route(plan_qk, "attention", mode, q.device)
+    rec = obs.op_start("attention", (B, S, D, T), "kernel" if kernel else "ref", plan_qk,
+                       q, k, v, label="decode" if S == 1 else "prefill")
     if mask is None:
         mask = torch.ones((S, T), dtype=torch.int8, device=q.device)
     mask = (mask != 0).to(torch.int8)
@@ -440,9 +477,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = q.to(f64).reshape(B, S, D)
     kf = k.to(f64).reshape(B, T, D)
     vf = v.to(f64).reshape(B, T, D)
-    if kernel_route(plan_qk, "attention", mode, q.device):
+    if kernel:
         out = _attn.attention_fused(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bq=bq,
                                     bkv=bkv)
     else:
         out = _attn.attention_ref(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bkv)
-    return out.reshape(lead + (S, D))
+    return obs.op_end(rec, out.reshape(lead + (S, D)))

@@ -47,6 +47,30 @@ def two_prod(a: torch.Tensor, b: torch.Tensor) -> Pair:
     return p, e
 
 
+def kahan_sum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Kahan-compensated reduction along ``axis``: a sequential scan over that
+    axis, one step per element, vectorised over the other axes."""
+    xm = torch.movedim(x, axis, 0)
+    s = torch.zeros_like(xm[0])
+    c = torch.zeros_like(xm[0])
+    for xi in xm:
+        y = xi - c
+        t = s + y
+        c = (t - s) - y
+        s = t
+    return s
+
+
+def compensated_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Dot2-style compensated inner product: ~twice-working-precision accuracy.
+
+    The implementation lives in ``repro_torch.core.compensated`` (the home of
+    the compensated reductions); this alias keeps the reference's name here.
+    """
+    from repro_torch.core import compensated  # deferred: compensated imports our EFTs
+    return compensated.compensated_dot(x, y)
+
+
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded (IEEE) square root on the tensor's device.
 

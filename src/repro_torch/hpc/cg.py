@@ -11,6 +11,8 @@ Alongside the compensated recurrence the solver records the same quantities
 recomputed with plain working-precision dots (``history_plain``).
 ``cg_solve`` is generic over the matvec; ``cg_solve_bell`` and
 ``cg_solve_dense`` wire in the dispatch-routed Blocked-ELL SpMV and dense GEMV.
+With telemetry on, every recorded residual (iteration 0 included) is also a
+``solver.cg`` event, beside the seam events of the matvec and reductions.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.core import compensated, dispatch, ozaki2
 from repro_torch.core.numerics import sqrt
+from repro_torch.obs import telemetry as obs
 
 
 @dataclasses.dataclass
@@ -55,6 +58,7 @@ def cg_solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
 
     history: List[float] = [float(sqrt(rs) / bnorm)]
     history_plain: List[float] = []
+    obs.record_event("solver.cg", dims=tuple(b.shape), iter=0, rel_residual=history[0])
     if record_plain:
         history_plain.append(float(sqrt(torch.dot(r, r)) / bnorm_plain))
     it = 0
@@ -65,6 +69,8 @@ def cg_solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         r = r - alpha * ap
         rs_new = dot(r, r)
         history.append(float(sqrt(rs_new) / bnorm))
+        obs.record_event("solver.cg", dims=tuple(b.shape), iter=it,
+                         rel_residual=history[-1])
         if record_plain:
             history_plain.append(float(sqrt(torch.dot(r, r)) / bnorm_plain))
         if history[-1] < tol:

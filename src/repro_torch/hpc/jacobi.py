@@ -17,6 +17,7 @@ grid with homogeneous Dirichlet boundary conditions (the stencil's zero halo
     u ← u + ω D⁻¹ (f - Δ_h u),   D = diag(Δ_h) = -Σ_axis 2 / h_axis².
 
 ω = 1 is classical Jacobi; ω = 2/3 is the standard multigrid smoother weighting.
+With telemetry on, every evaluated residual is also a ``solver.jacobi`` event.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.core import compensated, dispatch, ozaki2
+from repro_torch.obs import telemetry as obs
 
 
 def _coeff_list(spacings: Optional[Sequence[float]]) -> List[float]:
@@ -98,6 +100,7 @@ def jacobi_solve(f: torch.Tensor,
     r = residual(u)
     rel = float(compensated.compensated_norm(r, mode=mode)) / fnorm
     history: List[float] = [rel]
+    obs.record_event("solver.jacobi", dims=tuple(f.shape), iter=0, rel_residual=rel)
     if rel < tol:
         return JacobiResult(u, 0, rel, True, history)
 
@@ -108,6 +111,8 @@ def jacobi_solve(f: torch.Tensor,
         if it % check_every == 0 or it == maxiter:
             rel = float(compensated.compensated_norm(r, mode=mode)) / fnorm
             history.append(rel)
+            obs.record_event("solver.jacobi", dims=tuple(f.shape), iter=it,
+                             rel_residual=rel)
             if rel < tol:
                 return JacobiResult(u, it, rel, True, history)
     return JacobiResult(u, it, history[-1], False, history)

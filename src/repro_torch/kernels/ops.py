@@ -24,11 +24,14 @@ from repro_torch.kernels import ozaki_gemv as _gemv
 
 
 def _pad2(x: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """Zero-pad a 2-D operand to block multiples, contiguous: the kernels take
+    row-major operands, and a transposed input (``b.T`` in a backward) keeps
+    its strides through Phase 1."""
     M, N = x.shape
     pm, pn = (-M) % bm, (-N) % bn
     if pm or pn:
         x = F.pad(x, (0, pn, 0, pm))
-    return x
+    return x.contiguous()
 
 
 def _finish(raw: torch.Tensor, plan: ozaki2.Plan, out_rep: str,

@@ -11,11 +11,19 @@ Under an emulated precision policy (``policy_name="ozaki2_int8"``) every weight
 matmul goes through ``dispatch.matmul`` and the score path of every step through
 ``dispatch.attention``; the engine's ``dispatch_mode`` pins both routes
 (``auto`` | ``ref`` | ``kernel``) for everything it runs.
+
+With telemetry on (``repro_torch.obs.telemetry``), the engine records per-step
+serving events: ``serve.prefill`` (host-clock μs and tokens/s per prompt),
+``serve.decode`` (host-clock μs and tokens/s per batched step; both end in a
+copy of the next tokens to the host, which waits for the card) and
+``serve.queue`` (queue depth and active slots per scheduler step), beside the
+seam events of the model's own products and attention.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -23,6 +31,7 @@ import torch
 
 from repro_torch.core import dispatch
 from repro_torch.models.transformer import Model
+from repro_torch.obs import telemetry as obs
 
 
 @dataclasses.dataclass
@@ -58,6 +67,7 @@ class ServeEngine:
     def prefill_slot(self, slot: int, prompt: np.ndarray) -> int:
         """Feed a prompt through decode steps to fill the cache slot; returns
         the first generated token."""
+        t0 = time.perf_counter() if obs.enabled() else None
         last = 0
         for t, tok in enumerate(prompt):
             tokens = np.zeros((self.slots,), np.int64)
@@ -65,11 +75,22 @@ class ServeEngine:
             logits = self._decode_call(tokens, t)
             last = int(torch.argmax(logits[slot, 0]))
         self.pos[slot] = len(prompt)
+        if t0 is not None:
+            dt = time.perf_counter() - t0
+            obs.record_event("serve.prefill", us=dt * 1e6, route=self.dispatch_mode or "",
+                             tokens=len(prompt), slot=slot,
+                             tokens_per_s=len(prompt) / max(dt, 1e-9))
         return last
 
     def decode_step_all(self, tokens: np.ndarray, pos: int) -> np.ndarray:
+        t0 = time.perf_counter() if obs.enabled() else None
         logits = self._decode_call(tokens, pos)
-        return torch.argmax(logits[:, 0], dim=-1).cpu().numpy().astype(np.int32)
+        out = torch.argmax(logits[:, 0], dim=-1).cpu().numpy().astype(np.int32)
+        if t0 is not None:
+            dt = time.perf_counter() - t0
+            obs.record_event("serve.decode", us=dt * 1e6, route=self.dispatch_mode or "",
+                             batch=self.slots, tokens_per_s=self.slots / max(dt, 1e-9))
+        return out
 
 
 @dataclasses.dataclass
@@ -91,6 +112,7 @@ class ContinuousBatcher:
 
     def step(self) -> List[Request]:
         """One engine step; returns requests that finished this step."""
+        obs.record_event("serve.queue", queued=len(self.queue), active=len(self.active))
         self._admit()
         if not self.active:
             return []

@@ -706,3 +706,103 @@ def test_cuda_emulated_policies(cuda_device):
     oz1 = Policy("ozaki1_int8").dot(x, w)
     torch.testing.assert_close(oz1.cpu(), Policy("ozaki1_int8").dot(x.cpu(), w.cpu()), rtol=0,
                                atol=0)
+
+
+def _vjp_grads(policy, x, w, c):
+    """Gradients of sum(Policy.dot(x, w) * c) w.r.t. x and w, and the launches of
+    gemm_hilo and gemv_hilo in the forward and in the backward."""
+    x = x.clone().requires_grad_(True)
+    w = w.clone().requires_grad_(True)
+    kernels = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo)
+    before = [k.launches for k in kernels]
+    loss = (Policy(policy).dot(x, w) * c).sum()
+    torch.cuda.synchronize()
+    mid = [k.launches for k in kernels]
+    loss.backward()          # the CUDA backward runs on autograd's own thread
+    torch.cuda.synchronize()
+    after = [k.launches for k in kernels]
+    fwd = {k.__name__: m - b for k, m, b in zip(kernels, mid, before)}
+    bwd = {k.__name__: a - m for k, a, m in zip(kernels, after, mid)}
+    return x.grad, w.grad, fwd, bwd
+
+
+@pytest.mark.cuda
+def test_cuda_vjp_follows_the_forwards_route(cuda_device):
+    """A reference-route forward launches no kernel in its backward; a kernel-route
+    one launches gemm_hilo in both, and the gradients are bitwise equal."""
+    x = torch.from_numpy(RNG.standard_normal((16, 256))).to(cuda_device)
+    w = torch.from_numpy(RNG.standard_normal((256, 384))).to(cuda_device)
+    c = torch.from_numpy(RNG.standard_normal((16, 384))).to(cuda_device)
+    with dispatch.mode_scope("ref"):
+        rdx, rdw, rfwd, rbwd = _vjp_grads("ozaki2_int8", x, w, c)
+    assert rfwd == rbwd == {"gemm_hilo": 0, "gemv_hilo": 0}
+    kdx, kdw, kfwd, kbwd = _vjp_grads("ozaki2_int8", x, w, c)
+    assert kfwd == {"gemm_hilo": 1, "gemv_hilo": 0}
+    assert kbwd == {"gemm_hilo": 2, "gemv_hilo": 0}
+    torch.testing.assert_close(kdx, rdx, rtol=0, atol=0)
+    torch.testing.assert_close(kdw, rdw, rtol=0, atol=0)
+    fdx, fdw, _, _ = _vjp_grads("ozaki2_fp8", x, w, c)
+    torch.testing.assert_close(fdx, kdx, rtol=0, atol=0)
+    torch.testing.assert_close(fdw, kdw, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_vjp_records_its_backward_on_the_kernel_route(cuda_device):
+    from repro_torch.obs import telemetry as obs
+
+    x = torch.from_numpy(RNG.standard_normal((8, 128))).to(cuda_device).requires_grad_(True)
+    w = torch.from_numpy(RNG.standard_normal((128, 256))).to(cuda_device).requires_grad_(True)
+    obs.reset()
+    try:
+        with obs.telemetry_scope("counters"):
+            out = Policy("ozaki2_int8").dot(x, w)
+        out.sum().backward()          # outside the scope, on autograd's thread
+        snap = obs.counters_snapshot()
+    finally:
+        obs.reset()
+    assert set(snap) == {("gemm", cls, "kernel")
+                         for cls in ("8x128x256", "8x256x128", "128x8x256")}
+    assert all(v["calls"] == 1 and v["us"] > 0 and v["tme_us"] > 0 for v in snap.values())
+
+
+@pytest.mark.cuda
+def test_cuda_vjp_of_a_readout_launches_gemv_hilo(cuda_device):
+    """A 4096 x 1 readout: the forward and dB = Aᵀ·g are GEMVs, dA = g·wᵀ a GEMM
+    over a contraction of 1; bitwise equal to the reference route."""
+    x = torch.from_numpy(RNG.standard_normal((16, 4096))).to(cuda_device)
+    w = torch.from_numpy(RNG.standard_normal((4096, 1))).to(cuda_device)
+    c = torch.from_numpy(RNG.standard_normal((16, 1))).to(cuda_device)
+    kdx, kdw, kfwd, kbwd = _vjp_grads("ozaki2_int8", x, w, c)
+    assert kfwd == {"gemm_hilo": 0, "gemv_hilo": 1}
+    assert kbwd == {"gemm_hilo": 1, "gemv_hilo": 1}
+    with dispatch.mode_scope("ref"):
+        rdx, rdw, _, rbwd = _vjp_grads("ozaki2_int8", x, w, c)
+    assert rbwd == {"gemm_hilo": 0, "gemv_hilo": 0}
+    torch.testing.assert_close(kdx, rdx, rtol=0, atol=0)
+    torch.testing.assert_close(kdw, rdw, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_telemetry_times_with_events_and_report(cuda_device):
+    """Counters mode on CUDA tensors: event pairs resolved at the snapshot, every
+    kind recorded with route kernel, and the report's sweep on the card."""
+    from repro_torch.obs import report, telemetry as obs
+
+    a = torch.from_numpy(RNG.standard_normal((512, 512))).to(cuda_device)
+    obs.reset()
+    try:
+        with obs.telemetry_scope("counters"):
+            for _ in range(3):
+                dispatch.matmul(a, a)
+            assert len(obs._pending) == 3          # nothing waited for yet
+        snap = obs.counters_snapshot()
+        assert len(obs._pending) == 0
+        (key, agg), = snap.items()
+        assert key == ("gemm", "512x512x512", "kernel") and agg["calls"] == 3
+        assert 0 < agg["us_min"] <= agg["us_max"]
+        snap = report.sweep("cuda")
+        routes = {(c["kind"], c["route"]) for c in snap["counters"]}
+        for kind in ("gemm", "gemv", "stencil7", "spmv_bell", "attention", "reduce"):
+            assert {(kind, "ref"), (kind, "kernel")} <= routes
+    finally:
+        obs.reset()

@@ -156,10 +156,27 @@ def test_policy_dot_bitwise(name, dtype):
 
 @pytest.mark.parametrize("name", ["ozaki2_int8", "ozaki2_fp8", "ozaki1_int8"])
 def test_emulated_gradient_raises_naming_slice_10(name):
+    """Slice 10's VJP is ported: every emulated dot has a gradient.  ozaki2_fp8's
+    is bitwise ozaki2_int8's (the same integers on both substrates); ozaki1_int8's
+    is within 16 u of g·Wᵀ against |g|·|Wᵀ|."""
+    x_np = RNG.standard_normal((2, 4))
+    w_np = RNG.standard_normal((4, 3))
+    g_np = RNG.standard_normal((2, 3))
+
+    def grad_x(policy):
+        x = torch.from_numpy(x_np).requires_grad_(True)
+        Policy(policy).dot(x, torch.from_numpy(w_np)).backward(torch.from_numpy(g_np))
+        return x.grad.numpy()
+
+    got = grad_x(name)
+    assert got.shape == (2, 4)
+    if name == "ozaki1_int8":
+        err = np.abs(got - g_np @ w_np.T) / (np.abs(g_np) @ np.abs(w_np.T))
+        assert err.max() <= 16 * 2.0 ** -53
+    else:
+        np.testing.assert_array_equal(got, grad_x("ozaki2_int8"))
     x = torch.ones((2, 4), dtype=torch.float64, requires_grad=True)
     w = torch.ones((4, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        Policy(name).dot(x, w)
     with torch.no_grad():
         assert tuple(Policy(name).dot(x, w).shape) == (2, 3)
     assert tuple(Policy(name).dot(x.detach(), w).shape) == (2, 3)

@@ -71,11 +71,26 @@ def test_policy_dot_matches_reference(name):
 
 @pytest.mark.parametrize("name", ["ozaki2_fp8", "ozaki1_int8"])
 def test_unported_policies_raise(name):
-    """The forward of both policies is ported; their gradient is not (slice 10)."""
+    """Both policies are ported, the forward and (slice 10) the gradient: in
+    float32, ozaki2_fp8's gradient is bitwise ozaki2_int8's, ozaki1_int8's within
+    16 u of the float64 gradient before its rounding to float32."""
     out = Policy(name).dot(torch.ones((2, 4)), torch.ones((4, 3)))
     assert out.dtype == torch.float32 and bool((out == 4.0).all())
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        Policy(name).dot(torch.ones((2, 4), requires_grad=True), torch.ones((4, 3)))
+    w = torch.from_numpy(RNG.standard_normal((4, 3)).astype(np.float32))
+
+    def grad_x(policy):
+        x = torch.ones((2, 4), requires_grad=True)
+        Policy(policy).dot(x, w).sum().backward()
+        return x.grad
+
+    got = grad_x(name)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 4)
+    if name == "ozaki2_fp8":
+        assert torch.equal(got, grad_x("ozaki2_int8"))
+    else:
+        exact = w.double().sum(dim=1).expand(2, 4)        # g = 1: dA = 1·Wᵀ
+        bound = 16 * 2.0 ** -53 * w.double().abs().sum(dim=1) + 2.0 ** -24 * exact.abs()
+        assert bool(((got.double() - exact).abs() <= bound).all())
     with pytest.raises(ValueError):
         Policy("fp16")
 
