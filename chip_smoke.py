@@ -75,7 +75,9 @@ Phases (each prints its results; any failed check makes the script exit 1):
          phase's per-layer shape), ragged 6 x 37 x 301 with D = 80, softcap 30,
          a sliding window of 64, decode S = 1 against a ring mask at the serve
          phase's two cache lengths (32 with bkv 32, and 4096), and q
-         rows and v columns at ~1e-300.  In each: the kernel route against the
+         rows and v columns at ~1e-300; and an eighth at the gemmas' head_dim
+         256 (the kernel's wide path, bq <= 16): decode 16 x 1 x 4096.  In
+         each: the kernel route against the
          reference route (bitwise), the kernel against its plain version at
          two bq on every path of the kernel (the one-pass sweep, and where
          S = 1 the row path the wrapper picks and the sweep forced; bitwise,
@@ -122,13 +124,35 @@ Phases (each prints its results; any failed check makes the script exit 1):
          against native FP64, its time beside the int8 route and torch.matmul
          f64.  Ozaki-I's DGEMM 8192^3 (S = 8, 64 torch._int_mm products): its
          error (<= 16 u) and time.
-  serve-fp8 yi-6b at its published widths and all 32 layers under ozaki2_fp8,
-         compute float32, the serve phase's weights: one request of 16 seeded
+  serve-fp8 yi-6b at its published widths, depth cut to 8 of 32 layers, under
+         ozaki2_fp8, compute float32, seeded weights: one request of 16 seeded
          prompt tokens and 4 new tokens through ``ContinuousBatcher`` (the main
          path: attention_fused launched layers x steps, no gemm_hilo), its
          logits at every step bitwise equal to the same calls under
          ozaki2_int8 and within rtol 1e-3, atol 1e-4 of the fp64 policy's; ms
          per decode step, and one weight product by part.
+  serve-moe deepseek-moe-16b at its published widths and all 28 layers (d_model
+         2048, 16 heads of 128, 64 routed experts of width 1408, top-6, 2
+         shared, vocab 102400), policy ozaki2_int8, compute float32, weights
+         stored in bfloat16 (the published checkpoint's dtype) and made on the
+         card from a seed.  The main path, every launch count set to 0 just
+         before and read just after: ``ContinuousBatcher`` serves 3 requests
+         of 16 seeded prompt tokens and 8 new tokens through 2 slots (capacity
+         max(ceil(2 * 6 / 64 * 1.25), 6) = 6: no token dropped);
+         ``attention_fused`` launched layers x steps and ``gemm_hilo``
+         (7 x layers + 1) x steps (attention's four projections, the shared
+         experts' three, the LM head; the router and the routed experts are
+         float32 einsums, as in the reference).  The kernel route against the
+         reference route on the first 2 decode steps: logits and routed
+         experts of every layer bitwise.  The fp64 policy on the same weights
+         and calls: routes compared layer by layer (each flip printed with its
+         top-k margin in float32 ulps; a first flip of a slot at a margin above
+         MARGIN_ULPS fails), logits within rtol 1e-3, atol 1e-4 on every step
+         before the first flip.  Decode ms/step with its split (CUDA events):
+         weight products (dispatch.matmul, Phase 1 included; gemm_hilo alone
+         at the step's shapes), dispatch.attention, the routed experts (of it
+         the float32 copies of the bfloat16 expert stacks); tokens/s; the
+         weights' build time; peak memory.
   vjp    the emulated dots' gradient at yi-6b's widths: x 16 x 4096 through the
          MLP (gate and up 4096 x 11008, down 11008 x 4096, ``layers.mlp_apply``)
          and the unembedding (4096 x 64000, ``layers.unembed_apply``), float64
@@ -183,6 +207,12 @@ ATTN_D = 128             # yi-6b's head_dim
 SERVE_CTX = 32           # the batcher's cache length
 LONG_CTX = 4096          # yi-6b's pretraining context (arXiv:2403.04652)
 LONG_STEPS = 4           # decode steps against the full LONG_CTX cache
+WIDE_D = 256             # gemma-7b's and gemma3-4b's head_dim (attention's wide path)
+SERVE_MOE_ARCH = "deepseek-moe-16b"
+# A routing flip between the ozaki2_int8 and fp64 policies is a near-tie of the
+# router's float32 probabilities: the first flip of a slot must come at a top-k
+# margin of at most this many float32 ulps of the k-th probability.
+MARGIN_ULPS = 64
 
 # PERF.md section 6's times (ms) of each redesigned kernel before its redesign
 # (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's.
@@ -296,6 +326,49 @@ def profiled(fn, steps):
 
 def parts_text(parts):
     return "; ".join(f"{k} {t:.3f} ms" for k, t in parts)
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """While the block runs, time every call of each ``targets[name] = (module,
+    attribute)`` between CUDA events; yields {name: [(start, end), ...]}."""
+    import torch
+
+    events = {name: [] for name in targets}
+    real = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
+
+    def timed(name):
+        def call(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real[name](*args, **kw)
+            b.record()
+            events[name].append((a, b))
+            return out
+        return call
+
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, timed(name))
+    try:
+        yield events
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, real[name])
+
+
+def gemm_alone_ms(w):
+    """gemm_hilo alone at a decode step's shape for weight w: the step's rows
+    padded to 128 against w, after Phase 1 (CUDA events)."""
+    import torch
+
+    from repro_torch.core import dispatch, splitting
+    from repro_torch.kernels import ozaki_gemm
+
+    plan = dispatch.get_plan(w.shape[0])
+    x = torch.randn((128, w.shape[0]), device=w.device, dtype=torch.float64)
+    ah, al = splitting.split_hi_lo(splitting.scale_to_int(x, plan.payload_bits, -1)[0])
+    bh, bl = splitting.split_hi_lo(splitting.scale_to_int(w.double(), plan.payload_bits, 0)[0])
+    return time_ms(lambda: ozaki_gemm.gemm_hilo(ah, al, bh, bl, plan), reps=5)
 
 
 def byte_bound(nbytes):
@@ -810,8 +883,8 @@ def attention_phase(dev, gen):
     i = torch.arange(512, device=dev)
     window = ((i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < 64)).to(torch.int8)
 
-    def ring(t, pos):                                     # 2 slots x 32 heads at `pos`
-        return (torch.arange(t, device=dev) <= pos).to(torch.int8)[None, None].expand(64, 1, t)
+    def ring(t, pos, rows=64):                            # 2 slots x 32 heads at `pos`
+        return (torch.arange(t, device=dev) <= pos).to(torch.int8)[None, None].expand(rows, 1, t)
 
     def decode(t):
         return [randn(64, 1, ATTN_D), randn(64, t, ATTN_D), randn(64, t, ATTN_D)]
@@ -834,6 +907,9 @@ def attention_phase(dev, gen):
          ring(LONG_CTX, LONG_CTX - 2), 0.0),
         ("q rows and v columns at 1e-300", tiny, torch.ones((4, 64, 64), dtype=torch.int8,
                                                             device=dev), 0.0),
+        (f"decode 16 x 1 x {LONG_CTX}, D {WIDE_D}, ring mask",       # one gemma-7b slot
+         [randn(16, 1, WIDE_D), randn(16, LONG_CTX, WIDE_D), randn(16, LONG_CTX, WIDE_D)],
+         ring(LONG_CTX, LONG_CTX - 2, rows=16), 0.0),
     ]
     timed = {}
     err_kp = 0.0
@@ -938,7 +1014,7 @@ def serve_phase(dev):
     import torch
 
     from repro_torch.configs import registry
-    from repro_torch.core import dispatch, splitting
+    from repro_torch.core import dispatch
     from repro_torch.kernels import carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv
     from repro_torch.models.transformer import Model
     from repro_torch.serve.engine import ContinuousBatcher, Request, ServeEngine
@@ -957,24 +1033,6 @@ def serve_phase(dev):
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, 16) for _ in range(3)]
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 512)), device=dev)
-
-    # dispatch.attention and dispatch.matmul (the weight products with their
-    # Phase 1) timed with CUDA events inside the decode steps
-    events = {"attention": [], "matmul": []}
-    real = {"attention": dispatch.attention, "matmul": dispatch.matmul}
-
-    def timed(name):
-        def call(*args, **kw):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = real[name](*args, **kw)
-            b.record()
-            events[name].append((a, b))
-            return out
-        return call
-
-    def patch(fns):
-        dispatch.attention, dispatch.matmul = fns["attention"], fns["matmul"]
 
     def timed_steps(eng):
         """Host-clock times of the engine's decode steps."""
@@ -1010,9 +1068,11 @@ def serve_phase(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     for k in counts:
         k.launches = 0
-    patch({name: timed(name) for name in real})
     t0 = time.perf_counter()
-    try:
+    # dispatch.attention and dispatch.matmul (the weight products with their
+    # Phase 1) timed with CUDA events inside the decode steps
+    with timed_calls({"attention": (dispatch, "attention"),
+                      "matmul": (dispatch, "matmul")}) as events:
         done = batcher.run_to_completion()
         torch.cuda.synchronize()
         t_serve = time.perf_counter() - t0
@@ -1020,8 +1080,6 @@ def serve_phase(dev):
         toks = rng.integers(0, cfg.vocab_size, 2)
         for pos in range(LONG_CTX - LONG_STEPS, LONG_CTX):
             toks = long_engine.decode_step_all(toks, pos)
-    finally:
-        patch(real)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits_k, _ = model.apply({"tokens": tokens})
@@ -1064,16 +1122,8 @@ def serve_phase(dev):
     layer = model.layers[0].tree()
     weights = [layer["mixer"][n]["w"] for n in ("wq", "wk", "wv", "wo")] + \
               [layer["mlp"][n]["w"] for n in ("wi_gate", "wi_up", "wo")]
-
-    def gemm_ms(w):
-        plan = dispatch.get_plan(w.shape[0])
-        x = torch.randn((128, w.shape[0]), device=dev, dtype=torch.float64)
-        ah, al = splitting.split_hi_lo(splitting.scale_to_int(x, plan.payload_bits, -1)[0])
-        bh, bl = splitting.split_hi_lo(splitting.scale_to_int(w.double(), plan.payload_bits,
-                                                              0)[0])
-        return time_ms(lambda: ozaki_gemm.gemm_hilo(ah, al, bh, bl, plan), reps=5)
-
-    part["gemm_hilo"] = L * sum(gemm_ms(w) for w in weights) + gemm_ms(model.lm_head.w)
+    part["gemm_hilo"] = L * sum(gemm_alone_ms(w) for w in weights) + \
+        gemm_alone_ms(model.lm_head.w)
     print(f"serve: {len(steps)} decode steps ({sum(len(p) for p in prompts)} prompt steps + "
           f"batched steps) at {step_ms:.3f} ms each (mean, host clock); {ntok} tokens in "
           f"{t_serve:.3f} s = {ntok / t_serve:.3f} tokens/s; forward of 512 tokens "
@@ -1388,6 +1438,7 @@ def fp8_phase(dev, gen):
 
 SERVE_FP8_PROMPT = 16
 SERVE_FP8_NEW = 4
+SERVE_FP8_LAYERS = 8     # of yi-6b's 32: the phase's time is its depth
 
 
 def serve_fp8_phase(dev):
@@ -1401,8 +1452,9 @@ def serve_fp8_phase(dev):
     from repro_torch.models.transformer import Model
     from repro_torch.serve.engine import ContinuousBatcher, Request, ServeEngine
 
-    cfg = registry.get_config("yi-6b", policy_name="ozaki2_fp8", compute_dtype="float32")
-    L = cfg.num_layers
+    cfg = registry.get_config("yi-6b", policy_name="ozaki2_fp8", compute_dtype="float32",
+                              num_layers=SERVE_FP8_LAYERS)
+    L, L_full = cfg.num_layers, registry.get_config("yi-6b").num_layers
     model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
     state = dict(model.state_dict())
     rng = np.random.default_rng(SEED + 2)
@@ -1462,7 +1514,8 @@ def serve_fp8_phase(dev):
 
     def replay(policy_name):
         """The same decode calls, tokens and positions under another policy."""
-        cfg2 = registry.get_config("yi-6b", policy_name=policy_name, compute_dtype="float32")
+        cfg2 = registry.get_config("yi-6b", policy_name=policy_name, compute_dtype="float32",
+                                   num_layers=L)
         eng = ServeEngine(Model(cfg2).load(state), batch_slots=1, max_seq=engine.max_seq)
         outs, times = [], []
         for toks, pos, _, _ in steps:
@@ -1484,12 +1537,210 @@ def serve_fp8_phase(dev):
     check(bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
           f"serve-fp8: logits of all {n} steps within rtol 1e-3, atol 1e-4 of the fp64 "
           f"policy's (max |diff| {err:.3e})")
-    print(f"serve-fp8: {cfg.name}, {L} layers, ozaki2_fp8, compute float32: {n} decode steps in "
+    print(f"serve-fp8: {cfg.name}, depth cut to {L} of {L_full} layers, ozaki2_fp8, compute "
+          f"float32: {n} decode steps in "
           f"{t_all:.1f} s, {fp8_ms:.3f} ms a step (mean, host clock; ozaki2_int8 "
           f"{int8_ms:.3f}, fp64 {fp64_ms:.3f}); launches {launches}", flush=True)
     del model, engine, batcher, state
     torch.cuda.empty_cache()
     return launches["attention_fused"]
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While the block runs, keep each MoE call's routed experts and router
+    logits: yields a list of (indices (T, k), logits (T, E)), on the card."""
+    from repro_torch.models import moe
+
+    log, real = [], moe._topk_gating
+
+    def gating(logits, m):
+        out = real(logits, m)
+        log.append((out[1], logits.detach().clone()))
+        return out
+
+    moe._topk_gating = gating
+    try:
+        yield log
+    finally:
+        moe._topk_gating = real
+
+
+def route_margins(logits, k):
+    """float32 ulps between each token's k-th and (k+1)-th router probability."""
+    import torch
+
+    p = torch.sort(torch.softmax(logits.float(), dim=-1), dim=-1, descending=True).values
+    kth = p[:, k - 1]
+    return (kth - p[:, k]) / (torch.nextafter(kth, torch.full_like(kth, 2.0)) - kth)
+
+
+def serve_moe_phase(dev):
+    """deepseek-moe-16b served at its published widths and depth; returns the
+    launch counts of its main path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import ContinuousBatcher, Request, ServeEngine
+
+    card = smi_line()
+    over = {"compute_dtype": "float32", "param_dtype": "bfloat16"}
+    cfg = registry.get_config(SERVE_MOE_ARCH, policy_name="ozaki2_int8", **over)
+    L, m = cfg.num_layers, cfg.moe
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "serve-moe: TF32 off for float32 matmuls (the router and the routed experts)")
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve-moe: {card}; {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, {m.num_experts} routed experts of "
+          f"width {m.d_expert}, top-{m.top_k}, {m.num_shared} shared, vocab {cfg.vocab_size}, "
+          f"{L} of {registry.get_config(SERVE_MOE_ARCH).num_layers} layers; param_count "
+          f"{cfg.param_count()}, active_param_count {cfg.active_param_count()}, {n_params} "
+          f"weights with the norms, in {cfg.param_dtype}, made on the card from a seed in "
+          f"{t_build:.3f} s; policy {cfg.policy_name}, compute {cfg.compute_dtype}. Reduced: "
+          f"bfloat16 storage (the published checkpoint's dtype), seeded weights in place of "
+          f"the checkpoint; nothing else cut", flush=True)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, 16) for _ in range(3)]
+    engine = ServeEngine(model, batch_slots=2, max_seq=SERVE_CTX)
+    steps, real_call = [], engine._decode_call
+
+    def call(toks, pos):
+        t = time.perf_counter()
+        out = real_call(toks, pos)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        steps.append((np.array(toks), pos, out.cpu(), dt))
+        return out
+
+    engine._decode_call = call
+    batcher = ContinuousBatcher(engine)
+    for uid, p in enumerate(prompts):
+        batcher.submit(Request(uid=uid, prompt=p, max_new_tokens=8))
+    counts = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo, ozaki_attention.attention_fused,
+              carry_fold.carry_fold)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in counts:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with timed_calls({"matmul": (dispatch, "matmul"), "attention": (dispatch, "attention"),
+                      "routed experts": (moe, "_routed_experts")}) as events, \
+            recorded_routes() as routes:
+        done = batcher.run_to_completion()
+        torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counts}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n = len(steps)
+    ntok = sum(len(r.generated) for r in done)
+    check(len(done) == 3 and ntok == 24,
+          f"serve-moe: 3 requests of 16 prompt tokens and 8 new tokens served through 2 slots "
+          f"in {n} decode steps, {ntok} tokens")
+    check(launches["attention_fused"] == L * n and launches["gemm_hilo"] == (7 * L + 1) * n
+          and launches["gemv_hilo"] == 0 and launches["carry_fold"] == 0,
+          f"serve-moe: attention_fused launched layers x steps = {L} x {n}, gemm_hilo "
+          f"(7 x layers + 1) x steps = {7 * L + 1} x {n} times, no gemv_hilo or carry_fold "
+          f"({launches})")
+    check(len(routes) == L * n and len(events["routed experts"]) == L * n and
+          len(events["attention"]) == L * n and len(events["matmul"]) == (7 * L + 1) * n,
+          f"serve-moe: per step one routing and one routed-experts call per layer, one timed "
+          f"attention call per layer and one timed matmul per weight, over {n} steps")
+    step_ms = 1e3 * sum(st[3] for st in steps) / n
+    part = {k: sum(a.elapsed_time(b) for a, b in v) / n for k, v in events.items()}
+    layer = model.layers[0].tree()
+    weights = [layer["mixer"][w]["w"] for w in ("wq", "wk", "wv", "wo")] + \
+              [layer["mlp"]["shared"][w]["w"] for w in ("wi_gate", "wi_up", "wo")]
+    part["gemm_hilo"] = L * sum(gemm_alone_ms(w) for w in weights) + \
+        gemm_alone_ms(model.lm_head.w)
+    ex = layer["mlp"]["experts"]
+    part["expert copies"] = L * time_ms(
+        lambda: [ex[w].to(cfg.compute_torch_dtype) for w in ("wi_gate", "wi_up", "wo")], reps=3)
+    rest = step_ms - part["matmul"] - part["attention"] - part["routed experts"]
+    print(f"serve-moe: {card}; {n} decode steps at {step_ms:.3f} ms each (mean, host clock); "
+          f"{ntok} tokens in {t_serve:.3f} s = {ntok / t_serve:.3f} tokens/s; peak memory "
+          f"{peak:.3f} GiB; launches {launches}", flush=True)
+    print(f"serve-moe: {card}; a decode step over {L} layers (CUDA events, mean): weight "
+          f"products (dispatch.matmul, Phase 1 included) {part['matmul']:.3f} ms, of it the "
+          f"gemm_hilo kernel {part['gemm_hilo']:.3f} ms (timed alone at the step's shapes); "
+          f"dispatch.attention {part['attention']:.3f} ms; the routed experts (einsums in "
+          f"float32) {part['routed experts']:.3f} ms, of it the float32 copies of the bfloat16 "
+          f"expert stacks {part['expert copies']:.3f} ms (timed alone); the rest (router, "
+          f"norms, embedding, host) {rest:.3f} ms", flush=True)
+    for r in sorted(done, key=lambda r: r.uid):
+        print(f"serve-moe: request {r.uid} -> {r.generated}", flush=True)
+    # the card's busy time in a decode step (torch.profiler), beside the untraced
+    # host-clock step: a CUDA-event split reads host time where the card waits
+    toks, pos = steps[-1][0], steps[-1][1]
+    prof_engine = ServeEngine(model, batch_slots=2, max_seq=SERVE_CTX)
+    busy, busy_parts = profiled(lambda: prof_engine._decode_call(toks, pos), 3)
+    del prof_engine
+    print(f"serve-moe: {card}; device busy {busy:.3f} ms of a {step_ms:.3f} ms decode step "
+          f"(torch.profiler, 3 steps), idle {100 * (1 - busy / step_ms):.2f}%: "
+          f"{parts_text(busy_parts)}", flush=True)
+    main_routes = [(idx.cpu(), route_margins(lg, m.top_k).cpu()) for idx, lg in routes]
+    del routes, events
+
+    def replay(model_, calls, mode=None):
+        """The recorded decode calls on a fresh engine: (logits, routes) of each."""
+        eng = ServeEngine(model_, batch_slots=2, max_seq=SERVE_CTX, dispatch_mode=mode)
+        with recorded_routes() as log:
+            outs = [eng._decode_call(toks, pos).cpu() for toks, pos, _, _ in calls]
+        return outs, [idx.cpu() for idx, _ in log]
+
+    # the kernel route against the reference route, at all L layers
+    t0 = time.perf_counter()
+    outs_k, routes_k = replay(model, steps[:2], "auto")
+    outs_r, routes_r = replay(model, steps[:2], "ref")
+    t_ref = time.perf_counter() - t0
+    diffs = [n_diff(a, b) for a, b in zip(outs_k, outs_r)]
+    route_diffs = sum(int((a != b).sum()) for a, b in zip(routes_k, routes_r))
+    check(diffs == [0, 0] and len(routes_k) == len(routes_r) == 2 * L and route_diffs == 0,
+          f"serve-moe: kernel vs reference route at {L} of {L} layers, first 2 decode steps: "
+          f"differing logits {diffs}, differing routed experts {route_diffs} of "
+          f"{2 * L * 2 * m.top_k} ({t_ref:.1f} s)")
+    main_diffs = [n_diff(st[2], o) for st, o in zip(steps, outs_k)]
+    check(main_diffs == [0, 0], f"serve-moe: the main path's first 2 steps equal the replay's "
+          f"(differing elements {main_diffs})")
+    del outs_k, outs_r
+
+    # the fp64 policy on the same weights and decode calls
+    cfg64 = registry.get_config(SERVE_MOE_ARCH, policy_name="fp64", **over)
+    t0 = time.perf_counter()
+    outs64, routes64 = replay(Model(cfg64).load(dict(model.state_dict())), steps)
+    t_64 = time.perf_counter() - t0
+    flips = []                                      # (step, layer, slot, margin in ulps)
+    for i, ((idx, margin), idx64) in enumerate(zip(main_routes, routes64)):
+        differ = (idx.sort(dim=-1).values != idx64.sort(dim=-1).values).any(dim=-1)
+        flips += [(i // L, i % L, int(t), float(margin[t])) for t in torch.nonzero(differ)]
+    first = {}
+    for f in flips:
+        first.setdefault(f[2], f)
+    first_step = min((f[0] for f in flips), default=n)
+    least = min(float(mg.min()) for _, mg in main_routes)
+    print(f"serve-moe: ozaki2_int8 vs fp64 routes: {len(flips)} of {L * n * 2} (layer, token) "
+          f"routes differ; flips (step, layer, slot, top-k margin in float32 ulps): "
+          f"{flips[:12]}{' ...' if len(flips) > 12 else ''}; least margin over all routes "
+          f"{least:.1f} ulps; fp64 replay of {n} steps {t_64:.1f} s", flush=True)
+    check(all(f[3] <= MARGIN_ULPS for f in first.values()),
+          f"serve-moe: each slot's first routing flip against the fp64 policy at a top-k margin "
+          f"of at most {MARGIN_ULPS} float32 ulps ({list(first.values())})")
+    got = torch.stack([st[2] for st in steps[:first_step] or steps[:1]])
+    want = torch.stack(outs64[:first_step] or outs64[:1])
+    err = float((got - want).abs().max())
+    check(first_step == 0 or bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
+          f"serve-moe: logits of the {first_step} steps before the first routing flip (of {n}) "
+          f"within rtol 1e-3, atol 1e-4 of the fp64 policy's (max |diff| {err:.3e})")
+    del model, engine, batcher, outs64, steps
+    return launches
 
 
 class RecordedPolicy:
@@ -1767,6 +2018,10 @@ def main():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    t_start = time.perf_counter()
+
+    def stamp(phases):
+        print(f"clock: {phases} done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
@@ -1951,29 +2206,44 @@ def main():
 
     del kmat, y, res_k, res_r
     torch.cuda.empty_cache()
+    stamp("setup, main, gemm, gemv, ragged, cg")
     stencil_kernel = stencil_phases(dev, gen)
     spmv_kernel = spmv_phases(dev, gen)
     reduce_kernels = reduce_phase(dev, gen)
+    stamp("stencil, jacobi, spmv, cg_bell, reduce")
     torch.cuda.empty_cache()
     attention_kernel = attention_phase(dev, gen)
+    stamp("attention")
     torch.cuda.empty_cache()
     serve_launches = serve_phase(dev)
+    stamp("serve")
     attention_kernel["launches"] = serve_launches["attention_fused"]
     GEMM_LAUNCHES["serve"] = serve_launches["gemm_hilo"]
     torch.cuda.empty_cache()
     spectral_launches = spectral_phase(dev, gen)
     GEMM_LAUNCHES["spectral"] = spectral_launches["gemm_hilo"]
     GEMV_LAUNCHES["spectral"] = spectral_launches["gemv_hilo"]
+    stamp("spectral")
     fp8_phase(dev, gen)
+    stamp("fp8")
     attention_kernel["launches"] += serve_fp8_phase(dev)
+    stamp("serve-fp8")
     gc.collect()       # the serve phases' engines and models sit in reference cycles
     torch.cuda.empty_cache()
+    moe_launches = serve_moe_phase(dev)
+    attention_kernel["launches"] += moe_launches["attention_fused"]
+    GEMM_LAUNCHES["serve-moe"] = moe_launches["gemm_hilo"]
+    stamp("serve-moe")
+    gc.collect()       # its engine and model sit in a reference cycle too
+    torch.cuda.empty_cache()
     GEMM_LAUNCHES["vjp"] = vjp_phase(dev)
+    stamp("vjp")
     torch.cuda.empty_cache()
     KERNEL_MS.update({"gemm": gemm_ms, "gemv": gemv[1]["ms"], "stencil7": stencil_kernel["ms"],
                       "spmv_bell": spmv_kernel["ms"], "attention prefill": attention_kernel["ms"],
                       "reduce": sum(k["ms"] for k in reduce_kernels)})
     tme_launches = tme_phase(dev, gen, KERNEL_MS)
+    stamp("tme")
     GEMM_LAUNCHES["tme"] = tme_launches["gemm_hilo"]
     GEMV_LAUNCHES["tme"] = tme_launches["gemv_hilo"]
     for entry in (stencil_kernel, spmv_kernel, attention_kernel, *reduce_kernels):

@@ -6,10 +6,10 @@ same family for CPU tests).
 
 Layer topology is a repeating ``pattern`` of ``BlockCfg`` entries (mixer kind +
 MLP kind + attention window): ``num_layers // period`` periods plus a tail of
-the pattern's first ``num_layers % period`` blocks.  Dtype names map to torch
-dtypes.  The reference's fields that only training or the unported layers read
-(remat, the SSM and xLSTM chunks, encoder frames, frontends, M-RoPE sections,
-MoE routing knobs) come with the slice that reads them.
+the pattern's first ``num_layers % period`` blocks (gemma3's 34 = 5·6 + 4).
+Dtype names map to torch dtypes.  The reference's fields that only training or
+the unported layers read (remat, the SSM and xLSTM chunks, encoder frames,
+frontends, M-RoPE sections) come with the slice that reads them.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ class MoECfg:
     top_k: int
     d_expert: int
     num_shared: int = 0
+    capacity_factor: float = 1.25
+    router_zloss: float = 1e-3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +133,16 @@ class ModelConfig:
                 + d * (self.num_kv_heads * self.head_dim) * 2)
             total += enc + cross
         return total
+
+    def active_param_count(self) -> int:
+        """Active (per-token) parameters: ``param_count`` less the routed experts
+        a token does not use."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive = (m.num_experts - m.top_k) * 3 * self.d_model * m.d_expert
+        moe_layers = sum(self.block_at(i).mlp == "moe" for i in range(self.num_layers))
+        return self.param_count() - moe_layers * inactive
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,21 +1,44 @@
-"""Architecture registry: ``--arch <id>`` resolution.
+"""Architecture registry (``repro.configs.registry``): ``--arch <id>``
+resolution and the (arch x shape) cells.
 
-Only the archs the port can build are registered (yi-6b: a decoder of attention
-mixers and dense MLPs).  The reference's other nine configs need MoE, SSM,
-encoder-decoder or M-RoPE layers, which are ROADMAP slice 8.
+Only the archs the port can build are registered: the decoders of attention
+mixers with dense MLPs (yi-6b, gemma-7b, minitron-4b, gemma3-4b) or MoE MLPs
+(deepseek-moe-16b, llama4-scout-17b-a16e).  The reference's other four need
+the SSM/xLSTM mixers (xlstm-350m, jamba-1.5-large-398b), the encoder-decoder
+family (whisper-medium) or M-RoPE and a vision frontend (qwen2-vl-72b): the
+rest of ROADMAP slice 8.
+
+``runnable_cells()`` applies the reference's skip rule: long_500k needs
+sub-quadratic attention, so only gemma3-4b among the ported archs runs it.
+The dry-run's input specs are not ported: their torch purpose belongs to
+``launch/`` (ROADMAP slice 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
-from repro_torch.configs.base import ModelConfig
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 
 ARCHS: Dict[str, str] = {
+    "minitron-4b": "repro_torch.configs.minitron_4b",
     "yi-6b": "repro_torch.configs.yi_6b",
+    "gemma-7b": "repro_torch.configs.gemma_7b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout",
 }
+
+# Archs whose sequence mixing is sub-quadratic (SSM / hybrid / sliding-window
+# majority): the only ones that run the long_500k cell.  The reference lists
+# jamba-1.5-large-398b and xlstm-350m too; they come with their mixers.
+SUBQUADRATIC = ("gemma3-4b",)
 
 
 def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
@@ -30,3 +53,31 @@ def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
 
 def list_archs() -> List[str]:
     return list(ARCHS)
+
+
+def cell_is_runnable(arch: str, shape: ShapeSpec) -> Tuple[bool, str]:
+    if shape.name == "long_500k" and arch not in SUBQUADRATIC:
+        return False, "long_500k skipped: pure full-attention arch"
+    return True, ""
+
+
+def runnable_cells() -> List[Tuple[str, ShapeSpec]]:
+    return [(arch, shape) for arch in ARCHS for shape in SHAPES
+            if cell_is_runnable(arch, shape)[0]]
+
+
+def concrete_batch(cfg: ModelConfig, shape: ShapeSpec, batch: int, seq: Optional[int] = None,
+                   seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+    """A small concrete token batch (tokens and labels, (batch, seq) int64, from
+    a numpy seed) for a reduced config, on ``device``."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: encoder inputs are ROADMAP slice 8 "
+                                  f"(the encoder-decoder family)")
+    if cfg.rope_type == "mrope":
+        raise NotImplementedError(f"{cfg.name}: vision embeddings and M-RoPE positions are "
+                                  f"ROADMAP slice 8")
+    rng = np.random.default_rng(seed)
+    S = seq or min(shape.seq_len, 32)
+    return convert.from_numpy({"tokens": rng.integers(0, cfg.vocab_size, (batch, S)),
+                               "labels": rng.integers(0, cfg.vocab_size, (batch, S))},
+                              device)

@@ -66,7 +66,10 @@ def params_from_jax(tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
     ``repro`` stacks the layers of each pattern period on a leading axis
     (``"stack"`` -> ``"b{j}"``, period i, block j is layer i * period + j) and
     keeps the remainder as ``"tail{j}"`` (layer num_periods * period + j); the
-    port names every layer ``layers.{index}``.
+    port names every layer ``layers.{index}``.  Every leaf unstacks alike: an
+    MoE layer's router (d, E), its stacked experts ((E, d, f), (E, f, d)) and
+    its shared experts come out as that layer's ``mlp.router.w``,
+    ``mlp.experts.*`` and ``mlp.shared.*``.
     """
     state: Dict[str, np.ndarray] = {}
     stack = tree.get("stack", {})

@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
         --policy ozaki2_int8 --compute-dtype float32 --device cpu
 
+``--arch`` takes any arch of ``configs.registry`` (yi-6b, gemma-7b, minitron-4b,
+gemma3-4b, deepseek-moe-16b, llama4-scout-17b-a16e).
+
 Weights and prompts are random, from seed 0, on ``--device`` (default
 ``cuda``; asking for ``cuda`` without a card raises).
 """

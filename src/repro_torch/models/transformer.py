@@ -4,8 +4,9 @@ single-token decode with ring-buffer KV caches.
 ``Model`` is an ``nn.Module`` holding one parameter tree per layer; layers run
 as a Python loop over them (the reference stacks the layers of each pattern
 period and scans over the stack).  The port builds decoders whose layers are
-attention mixers with dense MLPs; MoE, SSM/xLSTM mixers and encoder-decoder
-models are ROADMAP slice 8 and raise ``NotImplementedError``.
+attention mixers with dense or MoE MLPs (``models.moe``); the SSM/xLSTM mixers
+and the encoder-decoder family are the rest of ROADMAP slice 8 and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,15 +18,16 @@ from torch import nn
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.core.policy import Policy
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 
 def _check_block(cfg: ModelConfig, blk: BlockCfg) -> None:
-    if cfg.family != "decoder" or blk.mixer != "attn" or blk.mlp != "dense":
+    if cfg.family != "decoder" or blk.mixer != "attn" or blk.mlp not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with mixer {blk.mixer!r} and mlp {blk.mlp!r} "
-            f"is not ported yet (ROADMAP slice 8: MoE, SSM/xLSTM and encoder-decoder "
-            f"models); the port builds decoders of attention mixers and dense MLPs")
+            f"is not ported yet (ROADMAP slice 8, the rest: the SSM/xLSTM mixers and the "
+            f"encoder-decoder family); the port builds decoders of attention mixers with "
+            f"dense or MoE MLPs")
 
 
 # ---------------------------------------------------------------------------
@@ -38,16 +40,27 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, blk: BlockCfg) -> Dict:
     return {"norm1": layers.rmsnorm_init(cfg.d_model, dt, gen.device),
             "mixer": attention.attn_init(gen, cfg),
             "norm2": layers.rmsnorm_init(cfg.d_model, dt, gen.device),
-            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, act=cfg.mlp_act)}
+            "mlp": (moe.moe_init(gen, cfg) if blk.mlp == "moe" else
+                    layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, act=cfg.mlp_act))}
+
+
+def _mlp(p: Dict, h: torch.Tensor, blk: BlockCfg, cfg: ModelConfig, policy: Policy
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP: (out, aux loss), aux 0 for a dense MLP."""
+    if blk.mlp == "moe":
+        return moe.moe_apply(p, h, cfg, policy)
+    return (layers.mlp_apply(p, h, policy, cfg.mlp_act),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def block_apply(p: Dict, x: torch.Tensor, blk: BlockCfg, cfg: ModelConfig, policy: Policy,
-                sin, cos, causal: bool = True) -> torch.Tensor:
+                sin, cos, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, aux loss) after the block."""
     h = layers.rmsnorm_apply(p["norm1"], x)
     x = x + attention.attn_apply(p["mixer"], h, cfg, policy, sin, cos, window=blk.window,
                                  causal=causal)
-    h2 = layers.rmsnorm_apply(p["norm2"], x)
-    return x + layers.mlp_apply(p["mlp"], h2, policy, cfg.mlp_act)
+    mo, aux = _mlp(p["mlp"], layers.rmsnorm_apply(p["norm2"], x), blk, cfg, policy)
+    return x + mo, aux
 
 
 def block_cache_init(cfg: ModelConfig, blk: BlockCfg, batch: int, seq_len: int,
@@ -61,8 +74,8 @@ def block_decode_step(p: Dict, x: torch.Tensor, cache: Dict, blk: BlockCfg, cfg:
     mo, kv = attention.attn_decode_step(p["mixer"], h, cache["kv"], pos, cfg, policy, sin, cos,
                                         window=blk.window)
     x = x + mo
-    h2 = layers.rmsnorm_apply(p["norm2"], x)
-    return x + layers.mlp_apply(p["mlp"], h2, policy, cfg.mlp_act), {"kv": kv}
+    mo2, _ = _mlp(p["mlp"], layers.rmsnorm_apply(p["norm2"], x), blk, cfg, policy)
+    return x + mo2, {"kv": kv}
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +193,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def apply(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: {"tokens" (B, S) int | "embeds" (B, S, d)}; returns
-        (logits float32 (B, S, V), aux loss 0)."""
+        (logits float32 (B, S, V), the layers' summed aux loss)."""
         cfg = self.cfg
         if "embeds" in batch:
             x = batch["embeds"].to(cfg.compute_torch_dtype)
@@ -188,9 +201,11 @@ class Model(nn.Module):
             x = self._embed(batch["tokens"])
         S = x.shape[1]
         sin, cos = self._rope(torch.arange(S, device=x.device))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, p in enumerate(self.layers):
-            x = block_apply(p.tree(), x, cfg.block_at(i), cfg, self.policy, sin, cos)
-        return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = block_apply(p.tree(), x, cfg.block_at(i), cfg, self.policy, sin, cos)
+            aux = aux + a
+        return self._head(x), aux
 
     # --- decode ----------------------------------------------------------------
 
@@ -203,7 +218,8 @@ class Model(nn.Module):
     def decode_step(self, cache: List[Dict], tokens: torch.Tensor, pos: int,
                     ) -> Tuple[torch.Tensor, List[Dict]]:
         """tokens (B, 1) int; pos the position of this step.  Returns
-        (logits (B, 1, V), the new cache)."""
+        (logits (B, 1, V), the new cache); MoE aux losses are dropped, as in
+        the reference."""
         cfg = self.cfg
         x = self._embed(tokens)
         sin, cos = self._rope(torch.full((1,), int(pos), device=x.device))

@@ -584,6 +584,35 @@ def test_cuda_yi6b_width_decode_step_routes_bitwise(cuda_device):
         assert bool(torch.isfinite(out["kernel"]).all())
 
 
+@pytest.mark.cuda
+def test_cuda_deepseek_width_decode_step_routes_bitwise(cuda_device, monkeypatch):
+    """One deepseek-moe-16b layer at its published widths (bfloat16 weights):
+    logits and each step's routed experts bitwise across routes."""
+    from repro_torch.models import moe
+
+    cfg = registry.get_config("deepseek-moe-16b", num_layers=1, policy_name="ozaki2_int8",
+                              compute_dtype="float32", param_dtype="bfloat16")
+    model = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(5))
+    tokens = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 1))).to(cuda_device)
+    routes, real = [], moe._topk_gating
+
+    def gating(logits, m):
+        out = real(logits, m)
+        routes.append(out[1])
+        return out
+
+    monkeypatch.setattr(moe, "_topk_gating", gating)
+    caches = {m: model.init_cache(2, 16) for m in ("kernel", "ref")}
+    for pos in range(3):
+        out = {}
+        for m in caches:
+            with dispatch.mode_scope(m):
+                out[m], caches[m] = model.decode_step(caches[m], tokens, pos)
+        torch.testing.assert_close(out["kernel"], out["ref"], rtol=0, atol=0)
+        assert torch.equal(routes[-2], routes[-1]) and bool(torch.isfinite(out["kernel"]).all())
+    assert len(routes) == 6
+
+
 def _crandn(device, *shape):
     x = RNG.standard_normal(shape) + 1j * RNG.standard_normal(shape)
     return torch.from_numpy(x).to(device)

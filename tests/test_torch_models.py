@@ -169,15 +169,17 @@ def test_registry_init_and_unported_layers():
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size) == (32, 4096, 32, 4, 128, 11008, 64000)
     assert cfg.param_count() == jreg.get_config("yi-6b").param_count()
-    assert registry.list_archs() == ["yi-6b"]
-    with pytest.raises(ValueError):
-        registry.get_config("gemma-7b")
+    assert registry.list_archs() == ["minitron-4b", "yi-6b", "gemma-7b", "gemma3-4b",
+                                     "deepseek-moe-16b", "llama4-scout-17b-a16e"]
+    for unported in ("xlstm-350m", "no-such-arch"):
+        with pytest.raises(ValueError):
+            registry.get_config(unported)
     small = registry.get_config("yi-6b", smoke=True, compute_dtype="float32")
     model = Model(small).init(torch.Generator().manual_seed(0))
     n = sum(p.numel() for p in model.parameters())
     assert n == small.param_count() + small.d_model * (2 * small.num_layers + 1)   # + norms
     with pytest.raises(NotImplementedError, match="slice 8"):
-        Model(registry.get_config("yi-6b", smoke=True, pattern=(BlockCfg(mlp="moe"),)))
+        Model(registry.get_config("yi-6b", smoke=True, pattern=(BlockCfg(mixer="mamba"),)))
 
 
 @pytest.mark.parametrize("field", ["remat", "force_unroll", "ssm_chunk", "lstm_chunk",
