@@ -153,6 +153,33 @@ Phases (each prints its results; any failed check makes the script exit 1):
          at the step's shapes), dispatch.attention, the routed experts (of it
          the float32 copies of the bfloat16 expert stacks); tokens/s; the
          weights' build time; peak memory.
+  serve-ssm xlstm-350m at its published widths and all 24 layers (d_model 1024,
+         mLSTM and sLSTM alternating, 4 heads over d_inner 2048, no MLP, vocab
+         50304 tied), policy ozaki2_int8, float32 weights and compute, made on
+         the card from a seed.  The main path, every launch count set to 0 just
+         before and read just after: ``ContinuousBatcher`` serves 3 requests of
+         16 seeded prompt tokens and 8 new tokens through 2 slots, then one
+         ``Model.apply`` over 512 tokens (8 chunks of 64 in every layer); each
+         call launches the kernels ``products_per_call`` reads from the layers
+         (gemm_hilo 12 x 5 + 12 x 2 + 1 = 85, gemv_hilo 12 for mLSTM's 8-column
+         gate projection, no attention_fused).  Decode ms/step (host clock)
+         split by CUDA events into weight products and the recurrences' steps,
+         the card's busy share (torch.profiler), tokens/s, the forward's ms,
+         peak memory; 16 decode steps against the forward's first 16 positions
+         (within SSM_DECODE_TOL x 2^-23 max|logit|); the first 2 recorded decode
+         calls replayed on the kernel and reference routes (bitwise); every
+         step replayed under the fp64 policy (rtol 1e-3, atol 1e-4).
+  serve-hybrid jamba-1.5-large-398b at its published widths (d_model 8192, 64
+         heads over 8 KV heads, d_ff 24576, Mamba d_inner 16384 with state 16,
+         16 experts of width 24576, top-2, vocab 65536), depth cut to its first
+         2 layers (attention with a dense SwiGLU MLP; Mamba with the MoE),
+         ozaki2_int8, float32 compute, bfloat16 weights.  The same traffic and
+         forward (2 Mamba chunks of 256) as serve-ssm: gemm_hilo 11 and
+         attention_fused 1 a call; the forward and the first 2 decode calls
+         bitwise across routes (routed experts included); the fp64 policy's
+         routes under serve-moe's rule.  Step split (weight products,
+         attention, routed experts and their float32 copies), busy share, peak
+         memory (within the card's).
   vjp    the emulated dots' gradient at yi-6b's widths: x 16 x 4096 through the
          MLP (gate and up 4096 x 11008, down 11008 x 4096, ``layers.mlp_apply``)
          and the unembedding (4096 x 64000, ``layers.unembed_apply``), float64
@@ -1575,18 +1602,102 @@ def route_margins(logits, k):
     return (kth - p[:, k]) / (torch.nextafter(kth, torch.full_like(kth, 2.0)) - kth)
 
 
+def recording_engine(model):
+    """A 2-slot engine whose decode calls are kept, each as (tokens, pos, logits
+    on the host, host-clock seconds): (engine, that list)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(model, batch_slots=2, max_seq=SERVE_CTX)
+    steps, real_call = [], engine._decode_call
+
+    def call(toks, pos):
+        t = time.perf_counter()
+        out = real_call(toks, pos)
+        torch.cuda.synchronize()
+        steps.append((np.array(toks), pos, out.cpu(), time.perf_counter() - t))
+        return out
+
+    engine._decode_call = call
+    return engine, steps
+
+
+def replay(model, calls, mode=None):
+    """Recorded decode calls on a fresh 2-slot engine (zero states, as the
+    recording's), under dispatch mode ``mode``: (logits of each on the host, the
+    routed experts of each MoE call)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(model, batch_slots=2, max_seq=SERVE_CTX, dispatch_mode=mode)
+    with recorded_routes() as log:
+        outs = [eng._decode_call(toks, pos).cpu() for toks, pos, _, _ in calls]
+    return outs, [idx.cpu() for idx, _ in log]
+
+
+def check_routes_bitwise(phase, model, steps, moe_layers):
+    """The first 2 recorded decode calls replayed on the kernel and reference
+    routes: logits and routed experts bitwise, and equal to the main path's."""
+    L = model.cfg.num_layers
+    t0 = time.perf_counter()
+    outs_k, routes_k = replay(model, steps[:2], "auto")
+    outs_r, routes_r = replay(model, steps[:2], "ref")
+    t_ref = time.perf_counter() - t0
+    diffs = [n_diff(a, b) for a, b in zip(outs_k, outs_r)]
+    route_diffs = sum(int((a != b).sum()) for a, b in zip(routes_k, routes_r))
+    check(diffs == [0, 0] and len(routes_k) == len(routes_r) == 2 * moe_layers and
+          route_diffs == 0,
+          f"{phase}: kernel vs reference route at {L} of {L} layers, first 2 decode steps: "
+          f"differing logits {diffs}, differing routed experts {route_diffs} ({t_ref:.1f} s)")
+    main_diffs = [n_diff(st[2], o) for st, o in zip(steps, outs_k)]
+    check(main_diffs == [0, 0], f"{phase}: the main path's first 2 steps equal the replay's "
+          f"(differing elements {main_diffs})")
+
+
+def check_flips(phase, main_routes, routes64, outs, outs64, per_step, k):
+    """The fp64 policy's routes against the main path's, MoE call by MoE call
+    (``per_step`` a decode step): each flip printed with its top-k margin in
+    float32 ulps; a slot's first flip at a margin above MARGIN_ULPS fails; the
+    logits of every step before the first flip within rtol 1e-3, atol 1e-4."""
+    import torch
+
+    n = len(outs)
+    flips = []                                      # (step, MoE layer, slot, margin in ulps)
+    for i, ((idx, margin), idx64) in enumerate(zip(main_routes, routes64)):
+        differ = (idx.sort(dim=-1).values != idx64.sort(dim=-1).values).any(dim=-1)
+        flips += [(i // per_step, i % per_step, int(t), float(margin[t]))
+                  for t in torch.nonzero(differ)]
+    first = {}
+    for f in flips:
+        first.setdefault(f[2], f)
+    first_step = min((f[0] for f in flips), default=n)
+    least = min(float(mg.min()) for _, mg in main_routes)
+    print(f"{phase}: ozaki2_int8 vs fp64 routes: {len(flips)} of {per_step * n * 2} (layer, "
+          f"token) routes differ; flips (step, layer, slot, top-k margin in float32 ulps): "
+          f"{flips[:12]}{' ...' if len(flips) > 12 else ''}; least margin over all routes "
+          f"{least:.1f} ulps", flush=True)
+    check(len(main_routes) == len(routes64) == per_step * n and
+          all(f[3] <= MARGIN_ULPS for f in first.values()),
+          f"{phase}: each slot's first routing flip against the fp64 policy at a top-k margin "
+          f"of at most {MARGIN_ULPS} float32 ulps ({list(first.values())})")
+    got = torch.stack(outs[:first_step] or outs[:1])
+    want = torch.stack(outs64[:first_step] or outs64[:1])
+    err = float((got - want).abs().max())
+    check(first_step == 0 or bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
+          f"{phase}: logits of the {first_step} steps before the first routing flip (of {n}) "
+          f"within rtol 1e-3, atol 1e-4 of the fp64 policy's (max |diff| {err:.3e})")
+
+
 def serve_moe_phase(dev):
     """deepseek-moe-16b served at its published widths and depth; returns the
     launch counts of its main path."""
-    import numpy as np
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.core import dispatch
-    from repro_torch.kernels import carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv
     from repro_torch.models import moe
     from repro_torch.models.transformer import Model
-    from repro_torch.serve.engine import ContinuousBatcher, Request, ServeEngine
 
     card = smi_line()
     over = {"compute_dtype": "float32", "param_dtype": "bfloat16"}
@@ -1608,54 +1719,21 @@ def serve_moe_phase(dev):
           f"{t_build:.3f} s; policy {cfg.policy_name}, compute {cfg.compute_dtype}. Reduced: "
           f"bfloat16 storage (the published checkpoint's dtype), seeded weights in place of "
           f"the checkpoint; nothing else cut", flush=True)
-    rng = np.random.default_rng(SEED + 3)
-    prompts = [rng.integers(0, cfg.vocab_size, 16) for _ in range(3)]
-    engine = ServeEngine(model, batch_slots=2, max_seq=SERVE_CTX)
-    steps, real_call = [], engine._decode_call
-
-    def call(toks, pos):
-        t = time.perf_counter()
-        out = real_call(toks, pos)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        steps.append((np.array(toks), pos, out.cpu(), dt))
-        return out
-
-    engine._decode_call = call
-    batcher = ContinuousBatcher(engine)
-    for uid, p in enumerate(prompts):
-        batcher.submit(Request(uid=uid, prompt=p, max_new_tokens=8))
-    counts = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo, ozaki_attention.attention_fused,
-              carry_fold.carry_fold)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for k in counts:
-        k.launches = 0
-    t0 = time.perf_counter()
-    with timed_calls({"matmul": (dispatch, "matmul"), "attention": (dispatch, "attention"),
-                      "routed experts": (moe, "_routed_experts")}) as events, \
-            recorded_routes() as routes:
-        done = batcher.run_to_completion()
-        torch.cuda.synchronize()
-    t_serve = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in counts}
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    n = len(steps)
-    ntok = sum(len(r.generated) for r in done)
-    check(len(done) == 3 and ntok == 24,
-          f"serve-moe: 3 requests of 16 prompt tokens and 8 new tokens served through 2 slots "
-          f"in {n} decode steps, {ntok} tokens")
-    check(launches["attention_fused"] == L * n and launches["gemm_hilo"] == (7 * L + 1) * n
-          and launches["gemv_hilo"] == 0 and launches["carry_fold"] == 0,
-          f"serve-moe: attention_fused launched layers x steps = {L} x {n}, gemm_hilo "
-          f"(7 x layers + 1) x steps = {7 * L + 1} x {n} times, no gemv_hilo or carry_fold "
-          f"({launches})")
-    check(len(routes) == L * n and len(events["routed experts"]) == L * n and
-          len(events["attention"]) == L * n and len(events["matmul"]) == (7 * L + 1) * n,
+    check(products_per_call(cfg) == {"gemm_hilo": 7 * L + 1, "gemv_hilo": 0,
+                                     "attention_fused": L},
+          f"serve-moe: per decode step attention_fused once a layer ({L}), gemm_hilo 7 times a "
+          f"layer and once for the LM head ({7 * L + 1}), no gemv_hilo "
+          f"({products_per_call(cfg)})")
+    run = serve_requests("serve-moe", model, dev, SEED + 3, {
+        "matmul": (dispatch, "matmul"), "attention": (dispatch, "attention"),
+        "routed experts": (moe, "_routed_experts")}, forward=False)
+    n, part, steps, routes = run["n"], run["part"], run["steps"], run["routes"]
+    check(len(routes) == L * n and run["calls"] == {"matmul": (7 * L + 1) * n,
+                                                    "attention": L * n,
+                                                    "routed experts": L * n},
           f"serve-moe: per step one routing and one routed-experts call per layer, one timed "
-          f"attention call per layer and one timed matmul per weight, over {n} steps")
-    step_ms = 1e3 * sum(st[3] for st in steps) / n
-    part = {k: sum(a.elapsed_time(b) for a, b in v) / n for k, v in events.items()}
+          f"attention call per layer and one timed matmul per weight, over {n} steps "
+          f"({run['calls']}, {len(routes)} routes)")
     layer = model.layers[0].tree()
     weights = [layer["mixer"][w]["w"] for w in ("wq", "wk", "wv", "wo")] + \
               [layer["mlp"]["shared"][w]["w"] for w in ("wi_gate", "wi_up", "wo")]
@@ -1664,10 +1742,7 @@ def serve_moe_phase(dev):
     ex = layer["mlp"]["experts"]
     part["expert copies"] = L * time_ms(
         lambda: [ex[w].to(cfg.compute_torch_dtype) for w in ("wi_gate", "wi_up", "wo")], reps=3)
-    rest = step_ms - part["matmul"] - part["attention"] - part["routed experts"]
-    print(f"serve-moe: {card}; {n} decode steps at {step_ms:.3f} ms each (mean, host clock); "
-          f"{ntok} tokens in {t_serve:.3f} s = {ntok / t_serve:.3f} tokens/s; peak memory "
-          f"{peak:.3f} GiB; launches {launches}", flush=True)
+    rest = run["step_ms"] - part["matmul"] - part["attention"] - part["routed experts"]
     print(f"serve-moe: {card}; a decode step over {L} layers (CUDA events, mean): weight "
           f"products (dispatch.matmul, Phase 1 included) {part['matmul']:.3f} ms, of it the "
           f"gemm_hilo kernel {part['gemm_hilo']:.3f} ms (timed alone at the step's shapes); "
@@ -1675,71 +1750,298 @@ def serve_moe_phase(dev):
           f"float32) {part['routed experts']:.3f} ms, of it the float32 copies of the bfloat16 "
           f"expert stacks {part['expert copies']:.3f} ms (timed alone); the rest (router, "
           f"norms, embedding, host) {rest:.3f} ms", flush=True)
-    for r in sorted(done, key=lambda r: r.uid):
-        print(f"serve-moe: request {r.uid} -> {r.generated}", flush=True)
-    # the card's busy time in a decode step (torch.profiler), beside the untraced
-    # host-clock step: a CUDA-event split reads host time where the card waits
-    toks, pos = steps[-1][0], steps[-1][1]
-    prof_engine = ServeEngine(model, batch_slots=2, max_seq=SERVE_CTX)
-    busy, busy_parts = profiled(lambda: prof_engine._decode_call(toks, pos), 3)
-    del prof_engine
-    print(f"serve-moe: {card}; device busy {busy:.3f} ms of a {step_ms:.3f} ms decode step "
-          f"(torch.profiler, 3 steps), idle {100 * (1 - busy / step_ms):.2f}%: "
-          f"{parts_text(busy_parts)}", flush=True)
     main_routes = [(idx.cpu(), route_margins(lg, m.top_k).cpu()) for idx, lg in routes]
-    del routes, events
+    launches = run["launches"]
+    del routes, run
 
-    def replay(model_, calls, mode=None):
-        """The recorded decode calls on a fresh engine: (logits, routes) of each."""
-        eng = ServeEngine(model_, batch_slots=2, max_seq=SERVE_CTX, dispatch_mode=mode)
-        with recorded_routes() as log:
-            outs = [eng._decode_call(toks, pos).cpu() for toks, pos, _, _ in calls]
-        return outs, [idx.cpu() for idx, _ in log]
-
-    # the kernel route against the reference route, at all L layers
-    t0 = time.perf_counter()
-    outs_k, routes_k = replay(model, steps[:2], "auto")
-    outs_r, routes_r = replay(model, steps[:2], "ref")
-    t_ref = time.perf_counter() - t0
-    diffs = [n_diff(a, b) for a, b in zip(outs_k, outs_r)]
-    route_diffs = sum(int((a != b).sum()) for a, b in zip(routes_k, routes_r))
-    check(diffs == [0, 0] and len(routes_k) == len(routes_r) == 2 * L and route_diffs == 0,
-          f"serve-moe: kernel vs reference route at {L} of {L} layers, first 2 decode steps: "
-          f"differing logits {diffs}, differing routed experts {route_diffs} of "
-          f"{2 * L * 2 * m.top_k} ({t_ref:.1f} s)")
-    main_diffs = [n_diff(st[2], o) for st, o in zip(steps, outs_k)]
-    check(main_diffs == [0, 0], f"serve-moe: the main path's first 2 steps equal the replay's "
-          f"(differing elements {main_diffs})")
-    del outs_k, outs_r
+    check_routes_bitwise("serve-moe", model, steps, L)
 
     # the fp64 policy on the same weights and decode calls
     cfg64 = registry.get_config(SERVE_MOE_ARCH, policy_name="fp64", **over)
     t0 = time.perf_counter()
     outs64, routes64 = replay(Model(cfg64).load(dict(model.state_dict())), steps)
     t_64 = time.perf_counter() - t0
-    flips = []                                      # (step, layer, slot, margin in ulps)
-    for i, ((idx, margin), idx64) in enumerate(zip(main_routes, routes64)):
-        differ = (idx.sort(dim=-1).values != idx64.sort(dim=-1).values).any(dim=-1)
-        flips += [(i // L, i % L, int(t), float(margin[t])) for t in torch.nonzero(differ)]
-    first = {}
-    for f in flips:
-        first.setdefault(f[2], f)
-    first_step = min((f[0] for f in flips), default=n)
-    least = min(float(mg.min()) for _, mg in main_routes)
-    print(f"serve-moe: ozaki2_int8 vs fp64 routes: {len(flips)} of {L * n * 2} (layer, token) "
-          f"routes differ; flips (step, layer, slot, top-k margin in float32 ulps): "
-          f"{flips[:12]}{' ...' if len(flips) > 12 else ''}; least margin over all routes "
-          f"{least:.1f} ulps; fp64 replay of {n} steps {t_64:.1f} s", flush=True)
-    check(all(f[3] <= MARGIN_ULPS for f in first.values()),
-          f"serve-moe: each slot's first routing flip against the fp64 policy at a top-k margin "
-          f"of at most {MARGIN_ULPS} float32 ulps ({list(first.values())})")
-    got = torch.stack([st[2] for st in steps[:first_step] or steps[:1]])
-    want = torch.stack(outs64[:first_step] or outs64[:1])
+    print(f"serve-moe: fp64 replay of {n} steps {t_64:.1f} s", flush=True)
+    check_flips("serve-moe", main_routes, routes64, [st[2] for st in steps], outs64, L,
+                m.top_k)
+    del model, outs64, steps
+    return launches
+
+
+def products_per_call(cfg):
+    """The seam kernels one forward or decode call of a model launches, read
+    from its layers: {kernel: launches}.  Each weight product through the policy
+    (``layers.dense_apply``, the tied unembedding, an untied LM head) is one
+    ``gemm_hilo``, or one ``gemv_hilo`` at GEMV_MAX_B columns or fewer, and each
+    attention layer one ``attention_fused``.  The MoE router (float32) and
+    routed experts (einsums), sLSTM's block-diagonal R and the recurrences
+    launch none."""
+    from repro_torch.core import dispatch
+
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.num_heads
+    q, kv = H * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    mixer = {"attn": [q, kv, kv, d],                        # wq, wk, wv, wo
+             "mamba": [2 * di, 2 * cfg.ssm_state_dim + 1, d],   # in_proj, x_proj, out_proj
+             "mlstm": [2 * di, di, di, di, 2 * H, d],       # up, wq, wk, wv, w_if, down
+             "slstm": [4 * di, d]}                          # w_in, down_proj
+    gated = 2 if cfg.mlp_act in ("swiglu", "geglu") else 1
+    widths, attn = [cfg.vocab_size], 0
+    for i in range(cfg.num_layers):
+        blk = cfg.block_at(i)
+        widths += mixer[blk.mixer]
+        attn += blk.mixer == "attn"
+        if blk.mlp == "dense":
+            widths += [cfg.d_ff] * gated + [d]
+        elif blk.mlp == "moe" and cfg.moe.num_shared:
+            widths += [cfg.moe.num_shared * cfg.moe.d_expert] * gated + [d]
+    gemv = sum(w <= dispatch.GEMV_MAX_B for w in widths)
+    return {"gemm_hilo": len(widths) - gemv, "gemv_hilo": gemv, "attention_fused": attn}
+
+
+def launch_counts(reset=False):
+    """The seam kernels' and carry_fold's launch counts; with ``reset`` set them
+    to 0 first."""
+    from repro_torch.kernels import carry_fold, ozaki_attention, ozaki_gemm, ozaki_gemv
+
+    kernels = (ozaki_gemm.gemm_hilo, ozaki_gemv.gemv_hilo, ozaki_attention.attention_fused,
+               carry_fold.carry_fold)
+    if reset:
+        for k in kernels:
+            k.launches = 0
+    return {k.__name__: k.launches for k in kernels}
+
+
+def serve_requests(phase, model, dev, seed, timers, forward=True):
+    """A model's serving main path: ``ContinuousBatcher`` serves 3 requests of
+    16 seeded prompt tokens and 8 new tokens through 2 slots, then, with
+    ``forward``, one forward pass over 512 seeded tokens; every launch count is
+    set to 0 just before and read just after.  The batcher's calls to
+    ``timers`` are timed with CUDA events and its MoE routes recorded.  Checks
+    the launches against ``products_per_call``, and the forward's logits
+    bitwise against the same forward on the reference route; returns a dict of
+    what the phase reads on."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dispatch
+    from repro_torch.serve.engine import ContinuousBatcher, Request, ServeEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, 16) for _ in range(3)]
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 512)), device=dev)
+    engine, steps = recording_engine(model)
+    batcher = ContinuousBatcher(engine)
+    for uid, p in enumerate(prompts):
+        batcher.submit(Request(uid=uid, prompt=p, max_new_tokens=8))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with timed_calls(timers) as events, recorded_routes() as routes:
+        done = batcher.run_to_completion()
+        torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits = model.apply({"tokens": tokens})[0] if forward else None
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = len(steps)
+    ntok = sum(len(r.generated) for r in done)
+    check(len(done) == 3 and ntok == 24,
+          f"{phase}: 3 requests of 16 prompt tokens and 8 new tokens served through 2 slots "
+          f"in {n} decode steps, {ntok} tokens")
+    per = products_per_call(cfg)
+    want = {k: v * (n + forward) for k, v in per.items()}
+    check(launches == {**want, "carry_fold": 0},
+          f"{phase}: per call (a decode step or the forward) gemm_hilo {per['gemm_hilo']}, "
+          f"gemv_hilo {per['gemv_hilo']}, attention_fused {per['attention_fused']}, read from "
+          f"the layers; x ({n} steps + {int(forward)} forward) = {want}, no carry_fold "
+          f"({launches})")
+    if forward:
+        shape = tuple(logits.shape)
+        check(bool(torch.isfinite(logits).all()) and shape == (1, 512, cfg.vocab_size),
+              f"{phase}: forward logits over 512 tokens finite, shape {shape}")
+        t0 = time.perf_counter()
+        with dispatch.mode_scope("ref"):
+            logits_r = model.apply({"tokens": tokens})[0]
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+        diff = n_diff(logits, logits_r)
+        check(diff == 0, f"{phase}: kernel vs reference route, 512-token forward logits: "
+              f"{diff} of {logits.numel()} differ (reference forward {1e3 * t_ref:.1f} ms)")
+        del logits_r
+    check(peak < torch.cuda.get_device_properties(dev).total_memory,
+          f"{phase}: peak memory {peak / 2 ** 30:.3f} GiB within the card's "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 2 ** 30:.3f} GiB")
+    step_ms = 1e3 * sum(st[3] for st in steps) / n
+    fwd = f"forward of 512 tokens {1e3 * t_fwd:.3f} ms; " if forward else ""
+    print(f"{phase}: {smi_line()}; {n} decode steps at {step_ms:.3f} ms each (mean, host "
+          f"clock); {ntok} tokens in {t_serve:.3f} s = {ntok / t_serve:.3f} tokens/s; {fwd}peak "
+          f"memory {peak / 2 ** 30:.3f} GiB; launches {launches}", flush=True)
+    for r in sorted(done, key=lambda r: r.uid):
+        print(f"{phase}: request {r.uid} -> {r.generated}", flush=True)
+    # the card's busy time in a decode step (torch.profiler)
+    prof_engine = ServeEngine(model, batch_slots=2, max_seq=SERVE_CTX)
+    busy, busy_parts = profiled(lambda: prof_engine._decode_call(steps[-1][0], steps[-1][1]), 3)
+    print(f"{phase}: {smi_line()}; device busy {busy:.3f} ms of a {step_ms:.3f} ms decode step "
+          f"(torch.profiler, 3 steps), idle {100 * (1 - busy / step_ms):.2f}%: "
+          f"{parts_text(busy_parts)}", flush=True)
+    part = {k: sum(a.elapsed_time(b) for a, b in v) / n for k, v in events.items()}
+    counts = {k: len(v) for k, v in events.items()}
+    return {"launches": launches, "steps": steps, "step_ms": step_ms, "part": part,
+            "calls": counts, "routes": routes, "tokens": tokens, "logits": logits,
+            "n": n}
+
+
+SERVE_SSM_ARCH = "xlstm-350m"
+SERVE_HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_LAYERS = 2        # jamba's first two: attention + dense MLP, Mamba + MoE
+# Token-by-token decode against the forward pass of a recurrent model, in
+# units of 2^-23 max|logit| (ROADMAP queue 3, item 14): the forward's chunked
+# scans and its reductions over 512 rows associate otherwise than the steps.
+SSM_DECODE_TOL = 64
+
+
+def serve_ssm_phase(dev):
+    """xlstm-350m served at its published widths and depth; returns the launch
+    counts of its main path."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import dispatch
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import Model
+
+    cfg = registry.get_config(SERVE_SSM_ARCH, policy_name="ozaki2_int8", compute_dtype="float32")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve-ssm: {smi_line()}; {cfg.name}: d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"{cfg.num_heads} heads of {cfg.d_inner // cfg.num_heads}, vocab {cfg.vocab_size} "
+          f"(tied), {L} of {L} layers alternating {[b.mixer for b in cfg.pattern]}, no MLP, "
+          f"chunks of {cfg.lstm_chunk}; param_count {cfg.param_count()}, {n_params} weights with "
+          f"the norms, in {cfg.param_dtype}, made on the card from a seed in {t_build:.3f} s; "
+          f"policy {cfg.policy_name}, compute {cfg.compute_dtype}. Reduced: seeded weights in "
+          f"place of the checkpoint; nothing else cut", flush=True)
+    run = serve_requests("serve-ssm", model, dev, SEED + 5, {
+        "matmul": (dispatch, "matmul"), "mLSTM steps": (ssm, "_mlstm_step"),
+        "sLSTM steps": (ssm, "_slstm_step")})
+    n, part, steps = run["n"], run["part"], run["steps"]
+    per = products_per_call(cfg)
+    kinds = [cfg.block_at(i).mixer for i in range(L)]
+    check(run["calls"] == {"matmul": (per["gemm_hilo"] + per["gemv_hilo"]) * n,
+                           "mLSTM steps": kinds.count("mlstm") * n,
+                           "sLSTM steps": kinds.count("slstm") * n},
+          f"serve-ssm: per decode step one timed matmul per weight and one step per mLSTM and "
+          f"sLSTM layer ({run['calls']})")
+    rest = run["step_ms"] - sum(part.values())
+    print(f"serve-ssm: {smi_line()}; a decode step over {L} layers (CUDA events, mean): weight "
+          f"products (dispatch.matmul, Phase 1 included) {part['matmul']:.3f} ms; the "
+          f"recurrences: mLSTM steps {part['mLSTM steps']:.3f} ms, sLSTM steps "
+          f"{part['sLSTM steps']:.3f} ms; the rest (projections' splits and gates, norms, "
+          f"embedding, host) {rest:.3f} ms", flush=True)
+    # the forward's first 16 positions against token-by-token decode
+    logits, tokens = run["logits"], run["tokens"]
+    cache = model.init_cache(1, 16)
+    dec = []
+    for t in range(16):
+        lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+        dec.append(lg[:, 0])
+    dec = torch.stack(dec, dim=1)
+    units = float((dec - logits[:, :16]).abs().max() / logits[:, :16].abs().max()) / 2.0 ** -23
+    check(units <= SSM_DECODE_TOL,
+          f"serve-ssm: 16 decode steps against the 512-token forward's first 16 positions "
+          f"(chunks of {cfg.lstm_chunk}): max |diff| {units:.3f} x 2^-23 max|logit| <= "
+          f"{SSM_DECODE_TOL}")
+    del cache, dec
+    check_routes_bitwise("serve-ssm", model, steps, 0)
+    cfg64 = registry.get_config(SERVE_SSM_ARCH, policy_name="fp64", compute_dtype="float32")
+    t0 = time.perf_counter()
+    outs64, _ = replay(Model(cfg64).load(dict(model.state_dict())), steps)
+    t_64 = time.perf_counter() - t0
+    got, want = torch.stack([st[2] for st in steps]), torch.stack(outs64)
     err = float((got - want).abs().max())
-    check(first_step == 0 or bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
-          f"serve-moe: logits of the {first_step} steps before the first routing flip (of {n}) "
-          f"within rtol 1e-3, atol 1e-4 of the fp64 policy's (max |diff| {err:.3e})")
-    del model, engine, batcher, outs64, steps
+    check(bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
+          f"serve-ssm: logits of all {n} steps within rtol 1e-3, atol 1e-4 of the fp64 "
+          f"policy's (max |diff| {err:.3e}; fp64 replay {t_64:.1f} s)")
+    launches = run["launches"]
+    del model, run, steps, outs64, got, want, logits
+    return launches
+
+
+def serve_hybrid_phase(dev):
+    """jamba-1.5-large-398b at its published widths, cut to its first two
+    layers; returns the launch counts of its main path."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import dispatch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model
+
+    over = {"compute_dtype": "float32", "param_dtype": "bfloat16", "num_layers": HYBRID_LAYERS}
+    cfg = registry.get_config(SERVE_HYBRID_ARCH, policy_name="ozaki2_int8", **over)
+    full = registry.get_config(SERVE_HYBRID_ARCH)
+    L, m = cfg.num_layers, cfg.moe
+    moe_layers = sum(cfg.block_at(i).mlp == "moe" for i in range(L))
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve-hybrid: {smi_line()}; {cfg.name}: d_model {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"d_inner {cfg.d_inner}, state {cfg.ssm_state_dim}, {m.num_experts} experts of width "
+          f"{m.d_expert}, top-{m.top_k}, vocab {cfg.vocab_size}; layers "
+          f"{[(b.mixer, b.mlp) for b in cfg.pattern[:L]]}; param_count {cfg.param_count()}, "
+          f"active_param_count {cfg.active_param_count()}, {n_params} weights with the norms, "
+          f"in {cfg.param_dtype}, made on the card from a seed in {t_build:.3f} s; policy "
+          f"{cfg.policy_name}, compute {cfg.compute_dtype}, Mamba chunks of {cfg.ssm_chunk}. "
+          f"Reduced: depth {L} of {full.num_layers} layers (the first two of its period of "
+          f"{full.period}: the full {full.param_count()} weights fit on no single card), "
+          f"bfloat16 storage, seeded weights in place of the checkpoint; widths not cut",
+          flush=True)
+    run = serve_requests("serve-hybrid", model, dev, SEED + 7, {
+        "matmul": (dispatch, "matmul"), "attention": (dispatch, "attention"),
+        "routed experts": (moe, "_routed_experts")})
+    n, part, steps = run["n"], run["part"], run["steps"]
+    per = products_per_call(cfg)
+    check(run["calls"] == {"matmul": (per["gemm_hilo"] + per["gemv_hilo"]) * n,
+                           "attention": per["attention_fused"] * n,
+                           "routed experts": moe_layers * n} and
+          len(run["routes"]) == moe_layers * n,
+          f"serve-hybrid: per decode step one timed matmul per weight, one attention call per "
+          f"attention layer, one routing and routed-experts call per MoE layer "
+          f"({run['calls']}, {len(run['routes'])} routes)")
+    layer = model.layers[1].tree()
+    ex = layer["mlp"]["experts"]
+    part["expert copies"] = moe_layers * time_ms(
+        lambda: [ex[w].to(cfg.compute_torch_dtype) for w in ("wi_gate", "wi_up", "wo")], reps=3)
+    rest = run["step_ms"] - part["matmul"] - part["attention"] - part["routed experts"]
+    print(f"serve-hybrid: {smi_line()}; a decode step over {L} layers (CUDA events, mean): "
+          f"weight products (dispatch.matmul, Phase 1 included) {part['matmul']:.3f} ms; "
+          f"dispatch.attention {part['attention']:.3f} ms; the routed experts "
+          f"{part['routed experts']:.3f} ms, of it the float32 copies of the bfloat16 expert "
+          f"stacks {part['expert copies']:.3f} ms (timed alone); the rest (Mamba's conv and "
+          f"scan step, router, norms, embedding, host) {rest:.3f} ms", flush=True)
+    main_routes = [(idx.cpu(), route_margins(lg, m.top_k).cpu()) for idx, lg in run["routes"]]
+    launches = run["launches"]
+    del run
+    check_routes_bitwise("serve-hybrid", model, steps, moe_layers)
+    cfg64 = registry.get_config(SERVE_HYBRID_ARCH, policy_name="fp64", **over)
+    t0 = time.perf_counter()
+    outs64, routes64 = replay(Model(cfg64).load(dict(model.state_dict())), steps)
+    print(f"serve-hybrid: fp64 replay of {n} steps {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check_flips("serve-hybrid", main_routes, routes64, [st[2] for st in steps], outs64,
+                moe_layers, m.top_k)
+    del model, steps, outs64
     return launches
 
 
@@ -2236,6 +2538,14 @@ def main():
     stamp("serve-moe")
     gc.collect()       # its engine and model sit in a reference cycle too
     torch.cuda.empty_cache()
+    for name, phase in (("serve-ssm", serve_ssm_phase), ("serve-hybrid", serve_hybrid_phase)):
+        counts = phase(dev)
+        attention_kernel["launches"] += counts["attention_fused"]
+        GEMM_LAUNCHES[name] = counts["gemm_hilo"]
+        GEMV_LAUNCHES[name] = counts["gemv_hilo"]
+        stamp(name)
+        gc.collect()
+        torch.cuda.empty_cache()
     GEMM_LAUNCHES["vjp"] = vjp_phase(dev)
     stamp("vjp")
     torch.cuda.empty_cache()

@@ -7,8 +7,8 @@ same family for CPU tests).
 Layer topology is a repeating ``pattern`` of ``BlockCfg`` entries (mixer kind +
 MLP kind + attention window): ``num_layers // period`` periods plus a tail of
 the pattern's first ``num_layers % period`` blocks (gemma3's 34 = 5·6 + 4).
-Dtype names map to torch dtypes.  The reference's fields that only training or
-the unported layers read (remat, the SSM and xLSTM chunks, encoder frames,
+Dtype names map to torch dtypes.  The reference's fields that only training,
+its dry run or the unported layers read (remat, force_unroll, encoder frames,
 frontends, M-RoPE sections) come with the slice that reads them.
 """
 
@@ -63,6 +63,7 @@ class ModelConfig:
     moe: Optional[MoECfg] = None
     # SSM / xLSTM
     ssm_state_dim: int = 16
+    ssm_conv_width: int = 4
     ssm_expand: int = 2
     # encoder-decoder
     encoder_layers: int = 0
@@ -73,6 +74,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
     attn_chunk: int = 1024           # flash-style q-block size (0 = unchunked)
+    ssm_chunk: int = 256             # mamba outer time-chunk
+    lstm_chunk: int = 64             # xLSTM time-chunk
 
     @property
     def period(self) -> int:

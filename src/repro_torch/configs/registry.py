@@ -1,15 +1,16 @@
 """Architecture registry (``repro.configs.registry``): ``--arch <id>``
 resolution and the (arch x shape) cells.
 
-Only the archs the port can build are registered: the decoders of attention
-mixers with dense MLPs (yi-6b, gemma-7b, minitron-4b, gemma3-4b) or MoE MLPs
-(deepseek-moe-16b, llama4-scout-17b-a16e).  The reference's other four need
-the SSM/xLSTM mixers (xlstm-350m, jamba-1.5-large-398b), the encoder-decoder
-family (whisper-medium) or M-RoPE and a vision frontend (qwen2-vl-72b): the
-rest of ROADMAP slice 8.
+Only the archs the port can build are registered, in the reference's order:
+the decoders of attention mixers with dense MLPs (minitron-4b, yi-6b,
+gemma-7b, gemma3-4b) or MoE MLPs (deepseek-moe-16b, llama4-scout-17b-a16e),
+and of the recurrent mixers (jamba-1.5-large-398b, Mamba and attention with
+MoE; xlstm-350m, mLSTM and sLSTM).  The reference's other two need the
+encoder-decoder family (whisper-medium) or M-RoPE and a vision frontend
+(qwen2-vl-72b): the rest of ROADMAP slice 8.
 
 ``runnable_cells()`` applies the reference's skip rule: long_500k needs
-sub-quadratic attention, so only gemma3-4b among the ported archs runs it.
+sub-quadratic sequence mixing (gemma3-4b, jamba-1.5-large-398b, xlstm-350m).
 The dry-run's input specs are not ported: their torch purpose belongs to
 ``launch/`` (ROADMAP slice 10).
 """
@@ -31,14 +32,15 @@ ARCHS: Dict[str, str] = {
     "yi-6b": "repro_torch.configs.yi_6b",
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 
 # Archs whose sequence mixing is sub-quadratic (SSM / hybrid / sliding-window
-# majority): the only ones that run the long_500k cell.  The reference lists
-# jamba-1.5-large-398b and xlstm-350m too; they come with their mixers.
-SUBQUADRATIC = ("gemma3-4b",)
+# majority) — the only ones that run the long_500k cell.
+SUBQUADRATIC = ("gemma3-4b", "jamba-1.5-large-398b", "xlstm-350m")
 
 
 def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:

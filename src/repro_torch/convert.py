@@ -33,13 +33,18 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def from_numpy(arrays, device="cuda"):
-    """numpy array(s) -> tensor(s) on ``device`` (default: the card)."""
+    """numpy array(s) -> tensor(s) on ``device`` (default: the card).  JAX's
+    bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` does not
+    take) come across bit for bit."""
     dev = resolve_device(device)
     if isinstance(arrays, dict):
         return {k: from_numpy(v, dev) for k, v in arrays.items()}
     if isinstance(arrays, (list, tuple)):
         return type(arrays)(from_numpy(v, dev) for v in arrays)
-    return torch.from_numpy(np.ascontiguousarray(arrays)).to(dev)
+    arr = np.ascontiguousarray(arrays)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
 
 
 def to_numpy(tensors):

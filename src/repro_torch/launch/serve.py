@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
         --policy ozaki2_int8 --compute-dtype float32 --device cpu
 
-``--arch`` takes any arch of ``configs.registry`` (yi-6b, gemma-7b, minitron-4b,
-gemma3-4b, deepseek-moe-16b, llama4-scout-17b-a16e).
+``--arch`` takes any arch of ``configs.registry`` (minitron-4b, yi-6b, gemma-7b,
+gemma3-4b, jamba-1.5-large-398b, deepseek-moe-16b, llama4-scout-17b-a16e,
+xlstm-350m).
 
 Weights and prompts are random, from seed 0, on ``--device`` (default
 ``cuda``; asking for ``cuda`` without a card raises).

@@ -1,11 +1,12 @@
 """The decoder stack (``repro.models.transformer``): full-sequence forward and
-single-token decode with ring-buffer KV caches.
+single-token decode with typed caches.
 
 ``Model`` is an ``nn.Module`` holding one parameter tree per layer; layers run
 as a Python loop over them (the reference stacks the layers of each pattern
-period and scans over the stack).  The port builds decoders whose layers are
-attention mixers with dense or MoE MLPs (``models.moe``); the SSM/xLSTM mixers
-and the encoder-decoder family are the rest of ROADMAP slice 8 and raise
+period and scans over the stack).  A layer's mixer is attention (a ring-buffer
+KV cache) or one of the recurrent mixers of ``models.ssm``, Mamba, mLSTM or
+sLSTM (a state of fixed size); its MLP is dense, MoE (``models.moe``) or none.
+The encoder-decoder family is the rest of ROADMAP slice 8 and raises
 ``NotImplementedError``.
 """
 
@@ -18,16 +19,27 @@ from torch import nn
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.core.policy import Policy
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
+
+
+# The recurrent mixer kinds: ``models.ssm`` names each one's functions
+# ``<kind>_init``, ``<kind>_apply``, ``<kind>_state_init`` and ``<kind>_decode_step``.
+RECURRENT = ("mamba", "mlstm", "slstm")
+
+
+def _recurrent(blk: BlockCfg, fn: str):
+    return getattr(ssm, f"{blk.mixer}_{fn}")
 
 
 def _check_block(cfg: ModelConfig, blk: BlockCfg) -> None:
-    if cfg.family != "decoder" or blk.mixer != "attn" or blk.mlp not in ("dense", "moe"):
+    if cfg.family != "decoder":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with mixer {blk.mixer!r} and mlp {blk.mlp!r} "
-            f"is not ported yet (ROADMAP slice 8, the rest: the SSM/xLSTM mixers and the "
-            f"encoder-decoder family); the port builds decoders of attention mixers with "
-            f"dense or MoE MLPs")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP slice 8, the "
+            f"rest: the encoder-decoder family); the port builds decoders")
+    if blk.mixer != "attn" and blk.mixer not in RECURRENT:
+        raise ValueError(f"{cfg.name}: unknown mixer {blk.mixer!r}")
+    if blk.mlp not in ("dense", "moe", "none"):
+        raise ValueError(f"{cfg.name}: unknown mlp {blk.mlp!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -35,47 +47,65 @@ def _check_block(cfg: ModelConfig, blk: BlockCfg) -> None:
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, blk: BlockCfg) -> Dict:
+    """norm1 and the mixer; norm2 and the MLP unless the block has none."""
     _check_block(cfg, blk)
     dt = cfg.param_torch_dtype
-    return {"norm1": layers.rmsnorm_init(cfg.d_model, dt, gen.device),
-            "mixer": attention.attn_init(gen, cfg),
-            "norm2": layers.rmsnorm_init(cfg.d_model, dt, gen.device),
-            "mlp": (moe.moe_init(gen, cfg) if blk.mlp == "moe" else
-                    layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, act=cfg.mlp_act))}
+    p = {"norm1": layers.rmsnorm_init(cfg.d_model, dt, gen.device),
+         "mixer": (attention.attn_init(gen, cfg) if blk.mixer == "attn" else
+                   _recurrent(blk, "init")(gen, cfg))}
+    if blk.mlp != "none":
+        p["norm2"] = layers.rmsnorm_init(cfg.d_model, dt, gen.device)
+        p["mlp"] = (moe.moe_init(gen, cfg) if blk.mlp == "moe" else
+                    layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, act=cfg.mlp_act))
+    return p
 
 
-def _mlp(p: Dict, h: torch.Tensor, blk: BlockCfg, cfg: ModelConfig, policy: Policy
+def _mlp(p: Dict, x: torch.Tensor, blk: BlockCfg, cfg: ModelConfig, policy: Policy
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The block's MLP: (out, aux loss), aux 0 for a dense MLP."""
+    """x after the block's MLP, and its aux loss (0 but for an MoE MLP)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if blk.mlp == "none":
+        return x, zero
+    h = layers.rmsnorm_apply(p["norm2"], x)
     if blk.mlp == "moe":
-        return moe.moe_apply(p, h, cfg, policy)
-    return (layers.mlp_apply(p, h, policy, cfg.mlp_act),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+        mo, aux = moe.moe_apply(p["mlp"], h, cfg, policy)
+        return x + mo, aux
+    return x + layers.mlp_apply(p["mlp"], h, policy, cfg.mlp_act), zero
 
 
 def block_apply(p: Dict, x: torch.Tensor, blk: BlockCfg, cfg: ModelConfig, policy: Policy,
                 sin, cos, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x, aux loss) after the block."""
     h = layers.rmsnorm_apply(p["norm1"], x)
-    x = x + attention.attn_apply(p["mixer"], h, cfg, policy, sin, cos, window=blk.window,
-                                 causal=causal)
-    mo, aux = _mlp(p["mlp"], layers.rmsnorm_apply(p["norm2"], x), blk, cfg, policy)
-    return x + mo, aux
+    if blk.mixer == "attn":
+        mo = attention.attn_apply(p["mixer"], h, cfg, policy, sin, cos, window=blk.window,
+                                  causal=causal)
+    else:
+        mo = _recurrent(blk, "apply")(p["mixer"], h, cfg, policy)
+    return _mlp(p, x + mo, blk, cfg, policy)
 
 
 def block_cache_init(cfg: ModelConfig, blk: BlockCfg, batch: int, seq_len: int,
                      device) -> Dict:
-    return {"kv": attention.cache_init(cfg, batch, seq_len, blk.window, device=device)}
+    """An attention layer's KV cache ``{"kv": ...}``, or a recurrent mixer's
+    state ``{"ssm": ...}``."""
+    if blk.mixer == "attn":
+        return {"kv": attention.cache_init(cfg, batch, seq_len, blk.window, device=device)}
+    return {"ssm": _recurrent(blk, "state_init")(cfg, batch, device)}
 
 
 def block_decode_step(p: Dict, x: torch.Tensor, cache: Dict, blk: BlockCfg, cfg: ModelConfig,
                       policy: Policy, pos: int, sin, cos) -> Tuple[torch.Tensor, Dict]:
     h = layers.rmsnorm_apply(p["norm1"], x)
-    mo, kv = attention.attn_decode_step(p["mixer"], h, cache["kv"], pos, cfg, policy, sin, cos,
-                                        window=blk.window)
-    x = x + mo
-    mo2, _ = _mlp(p["mlp"], layers.rmsnorm_apply(p["norm2"], x), blk, cfg, policy)
-    return x + mo2, {"kv": kv}
+    if blk.mixer == "attn":
+        mo, kv = attention.attn_decode_step(p["mixer"], h, cache["kv"], pos, cfg, policy, sin,
+                                            cos, window=blk.window)
+        new_cache = {"kv": kv}
+    else:
+        mo, st = _recurrent(blk, "decode_step")(p["mixer"], h, cache["ssm"], cfg, policy)
+        new_cache = {"ssm": st}
+    x, _ = _mlp(p, x + mo, blk, cfg, policy)
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +240,8 @@ class Model(nn.Module):
     # --- decode ----------------------------------------------------------------
 
     def init_cache(self, batch: int, seq_len: int) -> List[Dict]:
-        """One ring-buffer KV cache per layer, in the compute dtype."""
+        """A cache per layer: a ring-buffer KV cache in the compute dtype
+        (attention), or a float32 state (the recurrent mixers)."""
         return [block_cache_init(self.cfg, self.cfg.block_at(i), batch, seq_len, self.device)
                 for i in range(self.cfg.num_layers)]
 

@@ -613,6 +613,48 @@ def test_cuda_deepseek_width_decode_step_routes_bitwise(cuda_device, monkeypatch
     assert len(routes) == 6
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixer,arch", [("mamba", "jamba-1.5-large-398b"),
+                                        ("mlstm", "xlstm-350m"), ("slstm", "xlstm-350m")])
+def test_cuda_recurrent_mixer_routes_bitwise(cuda_device, mixer, arch):
+    """Each recurrent mixer at its smoke width under ozaki2_int8: the forward
+    over 12 steps in chunks of 4, then 4 decode steps, kernel and reference
+    routes bitwise (states included); the kernel route launches the seam's
+    kernels, and the states keep the shapes and float32 dtype of
+    ``*_state_init``."""
+    from repro_torch.models import ssm
+
+    cfg = registry.get_config(arch, smoke=True, policy_name="ozaki2_int8",
+                              compute_dtype="float32", ssm_chunk=4, lstm_chunk=4)
+    policy = Policy(cfg.policy_name)
+    params = getattr(ssm, f"{mixer}_init")(torch.Generator(device=cuda_device).manual_seed(7),
+                                           cfg)
+    x = torch.from_numpy(RNG.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+                         ).to(cuda_device)
+    launches = ozaki_gemm.gemm_hilo.launches + ozaki_gemv.gemv_hilo.launches
+    out = {}
+    for m in ("kernel", "ref"):
+        with dispatch.mode_scope(m):
+            out[m] = getattr(ssm, f"{mixer}_apply")(params, x, cfg, policy)
+    torch.testing.assert_close(out["kernel"], out["ref"], rtol=0, atol=0)
+    assert ozaki_gemm.gemm_hilo.launches + ozaki_gemv.gemv_hilo.launches > launches
+    init = getattr(ssm, f"{mixer}_state_init")(cfg, 2, cuda_device)
+    layout = {k: (tuple(v.shape), v.dtype, v.device) for k, v in init.items()}
+    assert all(dt == torch.float32 for _, dt, _ in layout.values())
+    states = {m: init for m in ("kernel", "ref")}
+    for t in range(4):
+        for m in states:
+            with dispatch.mode_scope(m):
+                out[m], states[m] = getattr(ssm, f"{mixer}_decode_step")(
+                    params, x[:, t:t + 1], states[m], cfg, policy)
+        torch.testing.assert_close(out["kernel"], out["ref"], rtol=0, atol=0)
+        assert bool(torch.isfinite(out["kernel"]).all())
+        for k in init:
+            torch.testing.assert_close(states["kernel"][k], states["ref"][k], rtol=0, atol=0)
+            assert (tuple(states["kernel"][k].shape), states["kernel"][k].dtype,
+                    states["kernel"][k].device) == layout[k]
+
+
 def _crandn(device, *shape):
     x = RNG.standard_normal(shape) + 1j * RNG.standard_normal(shape)
     return torch.from_numpy(x).to(device)

@@ -170,8 +170,9 @@ def test_registry_init_and_unported_layers():
             cfg.d_ff, cfg.vocab_size) == (32, 4096, 32, 4, 128, 11008, 64000)
     assert cfg.param_count() == jreg.get_config("yi-6b").param_count()
     assert registry.list_archs() == ["minitron-4b", "yi-6b", "gemma-7b", "gemma3-4b",
-                                     "deepseek-moe-16b", "llama4-scout-17b-a16e"]
-    for unported in ("xlstm-350m", "no-such-arch"):
+                                     "jamba-1.5-large-398b", "deepseek-moe-16b",
+                                     "llama4-scout-17b-a16e", "xlstm-350m"]
+    for unported in ("whisper-medium", "no-such-arch"):
         with pytest.raises(ValueError):
             registry.get_config(unported)
     small = registry.get_config("yi-6b", smoke=True, compute_dtype="float32")
@@ -179,15 +180,26 @@ def test_registry_init_and_unported_layers():
     n = sum(p.numel() for p in model.parameters())
     assert n == small.param_count() + small.d_model * (2 * small.num_layers + 1)   # + norms
     with pytest.raises(NotImplementedError, match="slice 8"):
-        Model(registry.get_config("yi-6b", smoke=True, pattern=(BlockCfg(mixer="mamba"),)))
+        Model(registry.get_config("yi-6b", smoke=True, family="encdec"))
 
 
-@pytest.mark.parametrize("field", ["remat", "force_unroll", "ssm_chunk", "lstm_chunk",
+@pytest.mark.parametrize("field", ["remat", "force_unroll", "mrope_sections",
                                    "encoder_seq", "frontend"])
 def test_get_config_rejects_fields_the_port_does_not_read(field):
     assert hasattr(jreg.get_config("yi-6b"), field)      # the reference's knob
     with pytest.raises(TypeError):
         registry.get_config("yi-6b", **{field: None})
+
+
+@pytest.mark.parametrize("field", ["ssm_chunk", "lstm_chunk", "ssm_conv_width"])
+def test_get_config_reads_the_recurrent_mixers_fields(field):
+    """The recurrent mixers' chunks and conv width, with the reference's value
+    in every config, published and smoke."""
+    for arch in registry.list_archs():
+        for smoke in (False, True):
+            assert getattr(registry.get_config(arch, smoke=smoke), field) == \
+                getattr(jreg.get_config(arch, smoke=smoke), field)
+    assert getattr(registry.get_config("yi-6b", **{field: 5}), field) == 5
 
 
 def test_serve_cli_on_the_host(capsys):
