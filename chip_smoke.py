@@ -75,9 +75,10 @@ Phases (each prints its results; any failed check makes the script exit 1):
          phase's per-layer shape), ragged 6 x 37 x 301 with D = 80, softcap 30,
          a sliding window of 64, decode S = 1 against a ring mask at the serve
          phase's two cache lengths (32 with bkv 32, and 4096), and q
-         rows and v columns at ~1e-300; and an eighth at the gemmas' head_dim
-         256 (the kernel's wide path, bq <= 16): decode 16 x 1 x 4096.  In
-         each: the kernel route against the
+         rows and v columns at ~1e-300; an eighth at the gemmas' head_dim
+         256 (the kernel's wide path, bq <= 16): decode 16 x 1 x 4096; and a
+         ninth at whisper's head_dim 64: its encoder's 16 x 1500 x 1500 with
+         no mask (the last key block 92 of 128 keys).  In each: the kernel route against the
          reference route (bitwise), the kernel against its plain version at
          two bq on every path of the kernel (the one-pass sweep, and where
          S = 1 the row path the wrapper picks and the sweep forced; bitwise,
@@ -86,11 +87,12 @@ Phases (each prints its results; any failed check makes the script exit 1):
          of the kernel on each path, its plain version,
          ``F.scaled_dot_product_attention`` f64 and the bound, and each path's
          device time by kernel (torch.profiler), at causal prefill, the ragged
-         case and both decode lengths, beside PERF.md's earlier times.
-  serve  yi-6b at its published widths and all 32 layers (d_model 4096, 32
-         heads over 4 KV heads, head_dim 128, d_ff 11008, vocab 64000), policy
-         ozaki2_int8, compute float32, random weights from a seeded generator
-         on the card.  The main path, with every launch count set to 0 just
+         case, both decode lengths and whisper's encoder, beside PERF.md's
+         earlier times.
+  serve  yi-6b at its published widths (d_model 4096, 32 heads over 4 KV
+         heads, head_dim 128, d_ff 11008, vocab 64000), depth cut to 16 of 32
+         layers (SERVE_LAYERS), policy ozaki2_int8, compute float32, random
+         weights from a seeded generator on the card.  The main path, with every launch count set to 0 just
          before and read just after: ``ContinuousBatcher`` serves 3 requests of
          16 seeded prompt tokens and 8 new tokens through 2 slots, then
          4 decode steps of a second engine whose 2 x 4096 cache is full
@@ -98,7 +100,7 @@ Phases (each prints its results; any failed check makes the script exit 1):
          then one forward pass over 512 tokens, all on the ``auto`` route;
          ``attention_fused`` launched layers x calls and ``gemm_hilo``
          (7 x layers + 1) x calls times.  Then the reference route (bitwise
-         forward logits and first 4 decode steps, at all 32 layers), and the
+         forward logits and first 4 decode steps, at all 16 layers), and the
          emulated logits against the fp64 policy's (rtol 1e-3, atol 1e-4).
          Prints decode ms/step, tokens/s, ``dispatch.attention``'s share of a
          decode step (CUDA events) at both cache lengths, and peak memory.
@@ -124,16 +126,16 @@ Phases (each prints its results; any failed check makes the script exit 1):
          against native FP64, its time beside the int8 route and torch.matmul
          f64.  Ozaki-I's DGEMM 8192^3 (S = 8, 64 torch._int_mm products): its
          error (<= 16 u) and time.
-  serve-fp8 yi-6b at its published widths, depth cut to 8 of 32 layers, under
+  serve-fp8 yi-6b at its published widths, depth cut to 2 of 32 layers, under
          ozaki2_fp8, compute float32, seeded weights: one request of 16 seeded
          prompt tokens and 4 new tokens through ``ContinuousBatcher`` (the main
          path: attention_fused launched layers x steps, no gemm_hilo), its
          logits at every step bitwise equal to the same calls under
          ozaki2_int8 and within rtol 1e-3, atol 1e-4 of the fp64 policy's; ms
          per decode step, and one weight product by part.
-  serve-moe deepseek-moe-16b at its published widths and all 28 layers (d_model
-         2048, 16 heads of 128, 64 routed experts of width 1408, top-6, 2
-         shared, vocab 102400), policy ozaki2_int8, compute float32, weights
+  serve-moe deepseek-moe-16b at its published widths (d_model 2048, 16 heads
+         of 128, 64 routed experts of width 1408, top-6, 2 shared, vocab
+         102400), depth cut to 8 of 28 layers (SERVE_MOE_LAYERS), policy ozaki2_int8, compute float32, weights
          stored in bfloat16 (the published checkpoint's dtype) and made on the
          card from a seed.  The main path, every launch count set to 0 just
          before and read just after: ``ContinuousBatcher`` serves 3 requests
@@ -153,15 +155,15 @@ Phases (each prints its results; any failed check makes the script exit 1):
          at the step's shapes), dispatch.attention, the routed experts (of it
          the float32 copies of the bfloat16 expert stacks); tokens/s; the
          weights' build time; peak memory.
-  serve-ssm xlstm-350m at its published widths and all 24 layers (d_model 1024,
-         mLSTM and sLSTM alternating, 4 heads over d_inner 2048, no MLP, vocab
-         50304 tied), policy ozaki2_int8, float32 weights and compute, made on
+  serve-ssm xlstm-350m at its published widths (d_model 1024, mLSTM and
+         sLSTM alternating, 4 heads over d_inner 2048, no MLP, vocab 50304
+         tied), depth cut to 16 of 24 layers (SSM_LAYERS), policy ozaki2_int8, float32 weights and compute, made on
          the card from a seed.  The main path, every launch count set to 0 just
          before and read just after: ``ContinuousBatcher`` serves 3 requests of
          16 seeded prompt tokens and 8 new tokens through 2 slots, then one
          ``Model.apply`` over 512 tokens (8 chunks of 64 in every layer); each
          call launches the kernels ``products_per_call`` reads from the layers
-         (gemm_hilo 12 x 5 + 12 x 2 + 1 = 85, gemv_hilo 12 for mLSTM's 8-column
+         (gemm_hilo 8 x 5 + 8 x 2 + 1 = 57, gemv_hilo 8 for mLSTM's 8-column
          gate projection, no attention_fused).  Decode ms/step (host clock)
          split by CUDA events into weight products and the recurrences' steps,
          the card's busy share (torch.profiler), tokens/s, the forward's ms,
@@ -174,12 +176,37 @@ Phases (each prints its results; any failed check makes the script exit 1):
          16 experts of width 24576, top-2, vocab 65536), depth cut to its first
          2 layers (attention with a dense SwiGLU MLP; Mamba with the MoE),
          ozaki2_int8, float32 compute, bfloat16 weights.  The same traffic and
-         forward (2 Mamba chunks of 256) as serve-ssm: gemm_hilo 11 and
+         forward (2 Mamba chunks of 256) as serve-ssm: gemm_hilo 12 (the
+         8192 x 65536 LM head in 2 column blocks, ``policy.column_blocks``) and
          attention_fused 1 a call; the forward and the first 2 decode calls
          bitwise across routes (routed experts included); the fp64 policy's
          routes under serve-moe's rule.  Step split (weight products,
          attention, routed experts and their float32 copies), busy share, peak
          memory (within the card's).
+  serve-encdec whisper-medium at its published widths and depth (24 encoder
+         and 24 decoder layers, d_model 1024, 16 heads of 64, d_ff 4096 GeGLU,
+         vocab 51865, 1500 encoder frames), ozaki2_int8, float32 weights and
+         compute.  The main path: the batcher's 3 requests (a decode step
+         launches gemm_hilo 9 a layer + 1, attention_fused 1 a layer: its
+         cross-attention over the never-filled cross cache is native), then
+         one forward over the stub frontend's 1 x 1500 seeded frame embeddings
+         and 448 seeded tokens (gemm_hilo 7 x 24 + 11 x 24 + 1, attention_fused
+         24 + 2 x 24), bitwise against the reference route.  The decode step's
+         parts and the forward's (weight products, attention of the encoder,
+         the decoder's self- and cross-attention; CUDA events); each replayed
+         step's cross-attention exactly 0 in every layer (ROADMAP queue 3, item
+         16); every step against the fp64 policy (rtol 1e-3, atol 1e-4).
+  serve-vlm qwen2-vl-72b at its published widths (d_model 8192, 64 heads over
+         8 KV heads of 128, d_ff 29568 SwiGLU, vocab 152064 untied, M-RoPE
+         sections (16, 24, 24), theta 1e6), depth cut to 2 of its 80 layers,
+         bfloat16 weights, ozaki2_int8, float32 compute.  The batcher's 3 text
+         requests (three equal M-RoPE streams), then one forward over 512
+         seeded patch embeddings laid out as a 16 x 32 grid (t = 0, h = row, w
+         = column), bitwise against the reference route, and against the same
+         embeddings with three equal streams (the logits must differ).  The LM
+         head's product runs in 5 column blocks (``policy.column_blocks``):
+         gemm_hilo 19 and attention_fused 2 a call.  Decode against the fp64
+         policy; routes bitwise on 2 replayed steps; peak memory.
   vjp    the emulated dots' gradient at yi-6b's widths: x 16 x 4096 through the
          MLP (gate and up 4096 x 11008, down 11008 x 4096, ``layers.mlp_apply``)
          and the unembedding (4096 x 64000, ``layers.unembed_apply``), float64
@@ -208,6 +235,7 @@ r = 16 on).  Times are CUDA-event medians after a warm-up.
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -235,7 +263,14 @@ SERVE_CTX = 32           # the batcher's cache length
 LONG_CTX = 4096          # yi-6b's pretraining context (arXiv:2403.04652)
 LONG_STEPS = 4           # decode steps against the full LONG_CTX cache
 WIDE_D = 256             # gemma-7b's and gemma3-4b's head_dim (attention's wide path)
+ENC_D = 64               # whisper-medium's head_dim
+ENC_FRAMES = 1500        # whisper's encoder frames (a 30-second clip); 11 x 128 + 92 keys
 SERVE_MOE_ARCH = "deepseek-moe-16b"
+# Depths of the earlier serving phases, cut (from 32, 28 and 24) to keep the
+# whole script within its 20-minute limit on a slow host; widths are not cut.
+SERVE_LAYERS = 16        # of yi-6b's 32
+SERVE_MOE_LAYERS = 8     # of deepseek-moe-16b's 28
+SSM_LAYERS = 16          # of xlstm-350m's 24
 # A routing flip between the ozaki2_int8 and fp64 policies is a near-tie of the
 # router's float32 probabilities: the first flip of a slot must come at a top-k
 # margin of at most this many float32 ulps of the k-th probability.
@@ -356,12 +391,13 @@ def parts_text(parts):
 
 
 @contextlib.contextmanager
-def timed_calls(targets):
+def timed_calls(targets, label=None):
     """While the block runs, time every call of each ``targets[name] = (module,
-    attribute)`` between CUDA events; yields {name: [(start, end), ...]}."""
+    attribute)`` between CUDA events; yields {name: [(start, end), ...]}, each
+    call filed under ``label(name, args)`` where a ``label`` is given."""
     import torch
 
-    events = {name: [] for name in targets}
+    events = {name: [] for name in targets} if label is None else {}
     real = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
 
     def timed(name):
@@ -370,7 +406,7 @@ def timed_calls(targets):
             a.record()
             out = real[name](*args, **kw)
             b.record()
-            events[name].append((a, b))
+            events.setdefault(name if label is None else label(name, args), []).append((a, b))
             return out
         return call
 
@@ -937,6 +973,9 @@ def attention_phase(dev, gen):
         (f"decode 16 x 1 x {LONG_CTX}, D {WIDE_D}, ring mask",       # one gemma-7b slot
          [randn(16, 1, WIDE_D), randn(16, LONG_CTX, WIDE_D), randn(16, LONG_CTX, WIDE_D)],
          ring(LONG_CTX, LONG_CTX - 2, rows=16), 0.0),
+        (f"encoder 16 x {ENC_FRAMES} x {ENC_FRAMES}, D {ENC_D}, no mask",   # whisper's encoder
+         [randn(16, ENC_FRAMES, ENC_D) for _ in range(3)],
+         torch.ones((16, ENC_FRAMES, ENC_FRAMES), dtype=torch.int8, device=dev), 0.0),
     ]
     timed = {}
     err_kp = 0.0
@@ -978,7 +1017,7 @@ def attention_phase(dev, gen):
             col = y_k[:, :, 5].abs()
             check(bool((col > 0).all()), f"attention: the 1e-300 columns come out at "
                   f"{float(col.min()):.3e} .. {float(col.max()):.3e}")
-        if name.startswith(("causal", "decode", "ragged")):   # the timed shapes
+        if name.startswith(("causal", "decode", "ragged", "encoder")):   # the timed shapes
             timed[name] = (q, k, v, mask, pq, pp, bq, bkv, want)
         del y_k, y_r, plain, want
     out = {}
@@ -988,6 +1027,8 @@ def attention_phase(dev, gen):
         ops = oa._decompose(q, k, v, pq, pp, bkv)
         if S == T and name.startswith("causal"):
             sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        elif name.startswith("encoder"):
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
         else:
             keep = mask != 0
             sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
@@ -1026,6 +1067,10 @@ def attention_phase(dev, gen):
         out[name] = t
     del timed, cases
     KERNEL_MS["attention decode"] = out[f"decode 64 x 1 x {LONG_CTX}, ring mask"]["ms"]
+    t = out[f"encoder 16 x {ENC_FRAMES} x {ENC_FRAMES}, D {ENC_D}, no mask"]
+    print(f"attention: {smi_line()}; whisper's encoder shape: kernel {t['ms']:.3f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+          f"F.scaled_dot_product_attention f64 {t['library_ms']:.3f} ms", flush=True)
     t = out["causal prefill 32 x 512 x 512"]
     return {"name": "attention_fused", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ozaki_attention.cu",
@@ -1046,11 +1091,13 @@ def serve_phase(dev):
     from repro_torch.models.transformer import Model
     from repro_torch.serve.engine import ContinuousBatcher, Request, ServeEngine
 
-    cfg = registry.get_config("yi-6b", policy_name="ozaki2_int8", compute_dtype="float32")
+    cfg = registry.get_config("yi-6b", policy_name="ozaki2_int8", compute_dtype="float32",
+                              num_layers=SERVE_LAYERS)
     L = cfg.num_layers
     print(f"serve: {cfg.name} d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
-          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {L} layers; "
-          f"policy {cfg.policy_name}, compute {cfg.compute_dtype}", flush=True)
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {L} of "
+          f"{registry.get_config('yi-6b').num_layers} layers (depth cut for the script's time "
+          f"limit); policy {cfg.policy_name}, compute {cfg.compute_dtype}", flush=True)
     t0 = time.perf_counter()
     model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
@@ -1196,8 +1243,7 @@ def serve_phase(dev):
     del caches
 
     # the fp64 policy on the same weights
-    cfg64 = registry.get_config("yi-6b", policy_name="fp64", compute_dtype="float32")
-    model64 = Model(cfg64).load(dict(model.state_dict()))
+    model64 = Model(dataclasses.replace(cfg, policy_name="fp64")).load(dict(model.state_dict()))
     logits_64, _ = model64.apply({"tokens": tokens})
     err = float((logits_k - logits_64).abs().max())
     ok = bool(torch.allclose(logits_k, logits_64, rtol=1e-3, atol=1e-4))
@@ -1465,7 +1511,7 @@ def fp8_phase(dev, gen):
 
 SERVE_FP8_PROMPT = 16
 SERVE_FP8_NEW = 4
-SERVE_FP8_LAYERS = 8     # of yi-6b's 32: the phase's time is its depth
+SERVE_FP8_LAYERS = 2     # of yi-6b's 32: the phase's time is its depth
 
 
 def serve_fp8_phase(dev):
@@ -1700,7 +1746,7 @@ def serve_moe_phase(dev):
     from repro_torch.models.transformer import Model
 
     card = smi_line()
-    over = {"compute_dtype": "float32", "param_dtype": "bfloat16"}
+    over = {"compute_dtype": "float32", "param_dtype": "bfloat16", "num_layers": SERVE_MOE_LAYERS}
     cfg = registry.get_config(SERVE_MOE_ARCH, policy_name="ozaki2_int8", **over)
     L, m = cfg.num_layers, cfg.moe
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -1717,8 +1763,8 @@ def serve_moe_phase(dev):
           f"{cfg.param_count()}, active_param_count {cfg.active_param_count()}, {n_params} "
           f"weights with the norms, in {cfg.param_dtype}, made on the card from a seed in "
           f"{t_build:.3f} s; policy {cfg.policy_name}, compute {cfg.compute_dtype}. Reduced: "
-          f"bfloat16 storage (the published checkpoint's dtype), seeded weights in place of "
-          f"the checkpoint; nothing else cut", flush=True)
+          f"depth (the script's time limit), bfloat16 storage (the published checkpoint's "
+          f"dtype), seeded weights in place of the checkpoint; widths not cut", flush=True)
     check(products_per_call(cfg) == {"gemm_hilo": 7 * L + 1, "gemv_hilo": 0,
                                      "attention_fused": L},
           f"serve-moe: per decode step attention_fused once a layer ({L}), gemm_hilo 7 times a "
@@ -1726,7 +1772,7 @@ def serve_moe_phase(dev):
           f"({products_per_call(cfg)})")
     run = serve_requests("serve-moe", model, dev, SEED + 3, {
         "matmul": (dispatch, "matmul"), "attention": (dispatch, "attention"),
-        "routed experts": (moe, "_routed_experts")}, forward=False)
+        "routed experts": (moe, "_routed_experts")})
     n, part, steps, routes = run["n"], run["part"], run["steps"], run["routes"]
     check(len(routes) == L * n and run["calls"] == {"matmul": (7 * L + 1) * n,
                                                     "attention": L * n,
@@ -1768,34 +1814,48 @@ def serve_moe_phase(dev):
     return launches
 
 
-def products_per_call(cfg):
-    """The seam kernels one forward or decode call of a model launches, read
-    from its layers: {kernel: launches}.  Each weight product through the policy
-    (``layers.dense_apply``, the tied unembedding, an untied LM head) is one
-    ``gemm_hilo``, or one ``gemv_hilo`` at GEMV_MAX_B columns or fewer, and each
-    attention layer one ``attention_fused``.  The MoE router (float32) and
-    routed experts (einsums), sLSTM's block-diagonal R and the recurrences
-    launch none."""
+def products_per_call(cfg, forward=False):
+    """The seam kernels one decode step (or with ``forward`` one forward pass)
+    of a model launches, read from its layers: {kernel: launches}.  Each weight
+    product through the policy (``layers.dense_apply``, the tied unembedding,
+    an untied LM head) is one ``gemm_hilo`` per ``policy.column_blocks`` of its
+    weight, or one ``gemv_hilo`` at GEMV_MAX_B columns or fewer, and each
+    attention layer one ``attention_fused``.  An encoder-decoder's decode step
+    adds each decoder layer's cross-attention wq and wo (its softmax over the
+    cross cache is native); its forward adds the encoder's layers and each
+    decoder layer's four cross-attention products and one ``attention_fused``.
+    The MoE router (float32) and routed experts (einsums), sLSTM's
+    block-diagonal R and the recurrences launch none."""
+    from repro_torch.configs.base import BlockCfg
     from repro_torch.core import dispatch
+    from repro_torch.core.policy import column_blocks
 
     d, di, H = cfg.d_model, cfg.d_inner, cfg.num_heads
     q, kv = H * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    mixer = {"attn": [q, kv, kv, d],                        # wq, wk, wv, wo
-             "mamba": [2 * di, 2 * cfg.ssm_state_dim + 1, d],   # in_proj, x_proj, out_proj
-             "mlstm": [2 * di, di, di, di, 2 * H, d],       # up, wq, wk, wv, w_if, down
-             "slstm": [4 * di, d]}                          # w_in, down_proj
+    mixer = {"attn": [(d, q), (d, kv), (d, kv), (q, d)],            # wq, wk, wv, wo
+             "mamba": [(d, 2 * di), (di, 2 * cfg.ssm_state_dim + 1), (di, d)],
+             "mlstm": [(d, 2 * di), (di, di), (di, di), (di, di), (di, 2 * H), (di, d)],
+             "slstm": [(d, 4 * di), (di, d)]}                   # w_in, down_proj
+    cross = [(d, q), (d, kv), (d, kv), (q, d)] if forward else [(d, q), (q, d)]
     gated = 2 if cfg.mlp_act in ("swiglu", "geglu") else 1
-    widths, attn = [cfg.vocab_size], 0
-    for i in range(cfg.num_layers):
-        blk = cfg.block_at(i)
-        widths += mixer[blk.mixer]
+    shapes, attn = [(d, cfg.vocab_size)], 0
+    blocks = [cfg.block_at(i) for i in range(cfg.num_layers)]
+    if cfg.family == "encdec":
+        shapes += cross * cfg.num_layers
+        attn += cfg.num_layers if forward else 0
+        if forward:
+            blocks += [BlockCfg(mixer="attn", mlp="dense")] * cfg.encoder_layers
+    for blk in blocks:
+        shapes += mixer[blk.mixer]
         attn += blk.mixer == "attn"
         if blk.mlp == "dense":
-            widths += [cfg.d_ff] * gated + [d]
+            shapes += [(d, cfg.d_ff)] * gated + [(cfg.d_ff, d)]
         elif blk.mlp == "moe" and cfg.moe.num_shared:
-            widths += [cfg.moe.num_shared * cfg.moe.d_expert] * gated + [d]
-    gemv = sum(w <= dispatch.GEMV_MAX_B for w in widths)
-    return {"gemm_hilo": len(widths) - gemv, "gemv_hilo": gemv, "attention_fused": attn}
+            f = cfg.moe.num_shared * cfg.moe.d_expert
+            shapes += [(d, f)] * gated + [(f, d)]
+    gemv = sum(n <= dispatch.GEMV_MAX_B for _, n in shapes)
+    gemm = sum(len(column_blocks(k, n)) for k, n in shapes if n > dispatch.GEMV_MAX_B)
+    return {"gemm_hilo": gemm, "gemv_hilo": gemv, "attention_fused": attn}
 
 
 def launch_counts(reset=False):
@@ -1811,15 +1871,14 @@ def launch_counts(reset=False):
     return {k.__name__: k.launches for k in kernels}
 
 
-def serve_requests(phase, model, dev, seed, timers, forward=True):
+def serve_requests(phase, model, dev, seed, timers, batch=None):
     """A model's serving main path: ``ContinuousBatcher`` serves 3 requests of
-    16 seeded prompt tokens and 8 new tokens through 2 slots, then, with
-    ``forward``, one forward pass over 512 seeded tokens; every launch count is
-    set to 0 just before and read just after.  The batcher's calls to
-    ``timers`` are timed with CUDA events and its MoE routes recorded.  Checks
-    the launches against ``products_per_call``, and the forward's logits
-    bitwise against the same forward on the reference route; returns a dict of
-    what the phase reads on."""
+    16 seeded prompt tokens and 8 new tokens through 2 slots, then, given a
+    ``batch``, one forward pass over it; every launch count is set to 0 just
+    before and read just after.  The batcher's calls to ``timers`` are timed
+    with CUDA events and its MoE routes recorded.  Checks the launches against
+    ``products_per_call``, and the forward's logits bitwise against the same
+    forward on the reference route; returns a dict of what the phase reads on."""
     import numpy as np
     import torch
 
@@ -1829,7 +1888,7 @@ def serve_requests(phase, model, dev, seed, timers, forward=True):
     cfg = model.cfg
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, 16) for _ in range(3)]
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 512)), device=dev)
+    forward = batch is not None
     engine, steps = recording_engine(model)
     batcher = ContinuousBatcher(engine)
     for uid, p in enumerate(prompts):
@@ -1843,7 +1902,7 @@ def serve_requests(phase, model, dev, seed, timers, forward=True):
         torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
     t0 = time.perf_counter()
-    logits = model.apply({"tokens": tokens})[0] if forward else None
+    logits = model.apply(batch)[0] if forward else None
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
     launches = launch_counts()
@@ -1853,31 +1912,32 @@ def serve_requests(phase, model, dev, seed, timers, forward=True):
     check(len(done) == 3 and ntok == 24,
           f"{phase}: 3 requests of 16 prompt tokens and 8 new tokens served through 2 slots "
           f"in {n} decode steps, {ntok} tokens")
-    per = products_per_call(cfg)
-    want = {k: v * (n + forward) for k, v in per.items()}
+    per, per_fwd = products_per_call(cfg), products_per_call(cfg, forward=True)
+    want = {k: v * n + per_fwd[k] * forward for k, v in per.items()}
     check(launches == {**want, "carry_fold": 0},
-          f"{phase}: per call (a decode step or the forward) gemm_hilo {per['gemm_hilo']}, "
-          f"gemv_hilo {per['gemv_hilo']}, attention_fused {per['attention_fused']}, read from "
-          f"the layers; x ({n} steps + {int(forward)} forward) = {want}, no carry_fold "
-          f"({launches})")
+          f"{phase}: per decode step gemm_hilo {per['gemm_hilo']}, gemv_hilo "
+          f"{per['gemv_hilo']}, attention_fused {per['attention_fused']}"
+          + (f"; per forward {per_fwd}" if forward else "") + f", read from the layers; "
+          f"over {n} steps + {int(forward)} forward {want}, no carry_fold ({launches})")
+    rows = next(iter(batch.values())).shape[1] if forward else 0
     if forward:
         shape = tuple(logits.shape)
-        check(bool(torch.isfinite(logits).all()) and shape == (1, 512, cfg.vocab_size),
-              f"{phase}: forward logits over 512 tokens finite, shape {shape}")
+        check(bool(torch.isfinite(logits).all()) and shape == (1, rows, cfg.vocab_size),
+              f"{phase}: forward logits over {rows} positions finite, shape {shape}")
         t0 = time.perf_counter()
         with dispatch.mode_scope("ref"):
-            logits_r = model.apply({"tokens": tokens})[0]
+            logits_r = model.apply(batch)[0]
         torch.cuda.synchronize()
         t_ref = time.perf_counter() - t0
         diff = n_diff(logits, logits_r)
-        check(diff == 0, f"{phase}: kernel vs reference route, 512-token forward logits: "
+        check(diff == 0, f"{phase}: kernel vs reference route, {rows}-position forward logits: "
               f"{diff} of {logits.numel()} differ (reference forward {1e3 * t_ref:.1f} ms)")
         del logits_r
     check(peak < torch.cuda.get_device_properties(dev).total_memory,
           f"{phase}: peak memory {peak / 2 ** 30:.3f} GiB within the card's "
           f"{torch.cuda.get_device_properties(dev).total_memory / 2 ** 30:.3f} GiB")
     step_ms = 1e3 * sum(st[3] for st in steps) / n
-    fwd = f"forward of 512 tokens {1e3 * t_fwd:.3f} ms; " if forward else ""
+    fwd = f"forward over {rows} positions {1e3 * t_fwd:.3f} ms; " if forward else ""
     print(f"{phase}: {smi_line()}; {n} decode steps at {step_ms:.3f} ms each (mean, host "
           f"clock); {ntok} tokens in {t_serve:.3f} s = {ntok / t_serve:.3f} tokens/s; {fwd}peak "
           f"memory {peak / 2 ** 30:.3f} GiB; launches {launches}", flush=True)
@@ -1892,8 +1952,17 @@ def serve_requests(phase, model, dev, seed, timers, forward=True):
     part = {k: sum(a.elapsed_time(b) for a, b in v) / n for k, v in events.items()}
     counts = {k: len(v) for k, v in events.items()}
     return {"launches": launches, "steps": steps, "step_ms": step_ms, "part": part,
-            "calls": counts, "routes": routes, "tokens": tokens, "logits": logits,
-            "n": n}
+            "calls": counts, "routes": routes, "logits": logits, "n": n, "peak": peak,
+            "forward_ms": 1e3 * t_fwd}
+
+
+def token_batch(cfg, dev, seed, seq=512):
+    """A forward's batch: (1, seq) seeded tokens on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, seq)), device=dev)}
 
 
 SERVE_SSM_ARCH = "xlstm-350m"
@@ -1915,7 +1984,8 @@ def serve_ssm_phase(dev):
     from repro_torch.models import ssm
     from repro_torch.models.transformer import Model
 
-    cfg = registry.get_config(SERVE_SSM_ARCH, policy_name="ozaki2_int8", compute_dtype="float32")
+    cfg = registry.get_config(SERVE_SSM_ARCH, policy_name="ozaki2_int8", compute_dtype="float32",
+                              num_layers=SSM_LAYERS)
     L = cfg.num_layers
     t0 = time.perf_counter()
     model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
@@ -1924,14 +1994,16 @@ def serve_ssm_phase(dev):
     n_params = sum(p.numel() for p in model.parameters())
     print(f"serve-ssm: {smi_line()}; {cfg.name}: d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
           f"{cfg.num_heads} heads of {cfg.d_inner // cfg.num_heads}, vocab {cfg.vocab_size} "
-          f"(tied), {L} of {L} layers alternating {[b.mixer for b in cfg.pattern]}, no MLP, "
-          f"chunks of {cfg.lstm_chunk}; param_count {cfg.param_count()}, {n_params} weights with "
-          f"the norms, in {cfg.param_dtype}, made on the card from a seed in {t_build:.3f} s; "
-          f"policy {cfg.policy_name}, compute {cfg.compute_dtype}. Reduced: seeded weights in "
-          f"place of the checkpoint; nothing else cut", flush=True)
+          f"(tied), {L} of {registry.get_config(SERVE_SSM_ARCH).num_layers} layers alternating "
+          f"{[b.mixer for b in cfg.pattern]}, no MLP, chunks of {cfg.lstm_chunk}; param_count "
+          f"{cfg.param_count()}, {n_params} weights with the norms, in {cfg.param_dtype}, made "
+          f"on the card from a seed in {t_build:.3f} s; policy {cfg.policy_name}, compute "
+          f"{cfg.compute_dtype}. Reduced: depth (the script's time limit), seeded weights in "
+          f"place of the checkpoint; widths not cut", flush=True)
+    tokens = token_batch(cfg, dev, SEED + 6)
     run = serve_requests("serve-ssm", model, dev, SEED + 5, {
         "matmul": (dispatch, "matmul"), "mLSTM steps": (ssm, "_mlstm_step"),
-        "sLSTM steps": (ssm, "_slstm_step")})
+        "sLSTM steps": (ssm, "_slstm_step")}, tokens)
     n, part, steps = run["n"], run["part"], run["steps"]
     per = products_per_call(cfg)
     kinds = [cfg.block_at(i).mixer for i in range(L)]
@@ -1947,7 +2019,7 @@ def serve_ssm_phase(dev):
           f"{part['sLSTM steps']:.3f} ms; the rest (projections' splits and gates, norms, "
           f"embedding, host) {rest:.3f} ms", flush=True)
     # the forward's first 16 positions against token-by-token decode
-    logits, tokens = run["logits"], run["tokens"]
+    logits, tokens = run["logits"], tokens["tokens"]
     cache = model.init_cache(1, 16)
     dec = []
     for t in range(16):
@@ -1961,17 +2033,9 @@ def serve_ssm_phase(dev):
           f"{SSM_DECODE_TOL}")
     del cache, dec
     check_routes_bitwise("serve-ssm", model, steps, 0)
-    cfg64 = registry.get_config(SERVE_SSM_ARCH, policy_name="fp64", compute_dtype="float32")
-    t0 = time.perf_counter()
-    outs64, _ = replay(Model(cfg64).load(dict(model.state_dict())), steps)
-    t_64 = time.perf_counter() - t0
-    got, want = torch.stack([st[2] for st in steps]), torch.stack(outs64)
-    err = float((got - want).abs().max())
-    check(bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
-          f"serve-ssm: logits of all {n} steps within rtol 1e-3, atol 1e-4 of the fp64 "
-          f"policy's (max |diff| {err:.3e}; fp64 replay {t_64:.1f} s)")
+    replay_fp64("serve-ssm", model, steps)
     launches = run["launches"]
-    del model, run, steps, outs64, got, want, logits
+    del model, run, steps, logits
     return launches
 
 
@@ -2009,7 +2073,7 @@ def serve_hybrid_phase(dev):
           flush=True)
     run = serve_requests("serve-hybrid", model, dev, SEED + 7, {
         "matmul": (dispatch, "matmul"), "attention": (dispatch, "attention"),
-        "routed experts": (moe, "_routed_experts")})
+        "routed experts": (moe, "_routed_experts")}, token_batch(cfg, dev, SEED + 8))
     n, part, steps = run["n"], run["part"], run["steps"]
     per = products_per_call(cfg)
     check(run["calls"] == {"matmul": (per["gemm_hilo"] + per["gemv_hilo"]) * n,
@@ -2042,6 +2106,203 @@ def serve_hybrid_phase(dev):
     check_flips("serve-hybrid", main_routes, routes64, [st[2] for st in steps], outs64,
                 moe_layers, m.top_k)
     del model, steps, outs64
+    return launches
+
+
+SERVE_ENCDEC_ARCH = "whisper-medium"
+ENCDEC_TEXT = 448        # whisper's text context: the forward's decoder positions
+SERVE_VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 2           # of qwen2-vl-72b's 80: 4.25 G of its 72.7 G weights
+VLM_GRID = (16, 32)      # an image's merged patches, rows x columns: 512 positions
+
+
+def replay_fp64(phase, model, steps):
+    """Every recorded decode call replayed under the fp64 policy on the same
+    weights: logits within rtol 1e-3, atol 1e-4 of the main path's."""
+    import torch
+
+    from repro_torch.models.transformer import Model
+
+    cfg64 = dataclasses.replace(model.cfg, policy_name="fp64")
+    t0 = time.perf_counter()
+    outs64, _ = replay(Model(cfg64).load(dict(model.state_dict())), steps)
+    t_64 = time.perf_counter() - t0
+    got, want = torch.stack([st[2] for st in steps]), torch.stack(outs64)
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
+          f"{phase}: logits of all {len(steps)} steps within rtol 1e-3, atol 1e-4 of the fp64 "
+          f"policy's (max |diff| {err:.3e}; fp64 replay {t_64:.1f} s)")
+
+
+def serve_encdec_phase(dev):
+    """whisper-medium served at its published widths and depth; returns the
+    launch counts of its main path."""
+    import torch
+
+    from repro_torch.configs import base, registry
+    from repro_torch.core import dispatch
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import Model
+
+    cfg = registry.get_config(SERVE_ENCDEC_ARCH, policy_name="ozaki2_int8",
+                              compute_dtype="float32")
+    L, E = cfg.num_layers, cfg.encoder_layers
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve-encdec: {smi_line()}; {cfg.name}: {E} encoder and {L} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"({cfg.mlp_act}), vocab {cfg.vocab_size}, {cfg.encoder_seq} encoder frames; "
+          f"param_count {cfg.param_count()}, {n_params} weights with the norms and enc_pos, in "
+          f"{cfg.param_dtype}, made on the card from a seed in {t_build:.3f} s; policy "
+          f"{cfg.policy_name}, compute {cfg.compute_dtype}. Reduced: seeded weights in place of "
+          f"the checkpoint, the audio frontend a stub (seeded frame embeddings); nothing else "
+          f"cut", flush=True)
+    per, per_fwd = products_per_call(cfg), products_per_call(cfg, forward=True)
+    check(per == {"gemm_hilo": 9 * L + 1, "gemv_hilo": 0, "attention_fused": L} and
+          per_fwd == {"gemm_hilo": 7 * E + 11 * L + 1, "gemv_hilo": 0,
+                      "attention_fused": E + 2 * L},
+          f"serve-encdec: a decode step launches gemm_hilo 9 a layer (self 4, cross wq and wo, "
+          f"MLP 3) and 1 for the LM head, attention_fused 1 a layer ({per}); a forward "
+          f"gemm_hilo 7 an encoder layer, 11 a decoder layer and 1, attention_fused {E} + 2 x "
+          f"{L} ({per_fwd})")
+    batch = registry.concrete_batch(cfg, base.SHAPES[1], batch=1, seq=ENCDEC_TEXT, seed=SEED + 9,
+                                    device=dev)
+    del batch["labels"]
+    run = serve_requests("serve-encdec", model, dev, SEED + 8, {
+        "matmul": (dispatch, "matmul"), "attention": (dispatch, "attention"),
+        "cross": (attention, "cross_decode_step")}, batch)
+    n, part, steps = run["n"], run["part"], run["steps"]
+    check(run["calls"] == {"matmul": per["gemm_hilo"] * n, "attention": L * n, "cross": L * n},
+          f"serve-encdec: per decode step one timed matmul per weight, one attention and one "
+          f"cross-attention call per decoder layer ({run['calls']})")
+    rest = run["step_ms"] - part["matmul"] - part["attention"] - part["cross"] + \
+        2 * L * part["matmul"] / per["gemm_hilo"]
+    print(f"serve-encdec: {smi_line()}; a decode step over {L} decoder layers (CUDA events, "
+          f"mean): weight products (dispatch.matmul, Phase 1 included) {part['matmul']:.3f} ms; "
+          f"dispatch.attention (self) {part['attention']:.3f} ms; cross-attention over the "
+          f"{cfg.encoder_seq}-frame zero cache {part['cross']:.3f} ms (its wq and wo products "
+          f"included, ~{2 * L * part['matmul'] / per['gemm_hilo']:.3f} ms of the products' "
+          f"mean); the rest (norms, MLP activation, embedding, host) {rest:.3f} ms", flush=True)
+    # the forward's parts (a second forward, each call between CUDA events)
+    logits = run["logits"]
+    T = cfg.encoder_seq
+
+    def kind(name, args):
+        if name == "matmul":
+            return "weight products"
+        S, K = args[0].shape[-2], args[1].shape[-2]
+        return "encoder" if S == K == T else "cross" if K == T else "decoder self"
+
+    t0 = time.perf_counter()
+    with timed_calls({"matmul": (dispatch, "matmul"), "attention": (dispatch, "attention")},
+                     label=kind) as events:
+        again = model.apply(batch)[0]
+        torch.cuda.synchronize()
+    t_fwd = 1e3 * (time.perf_counter() - t0)
+    fparts = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+    calls = {k: len(v) for k, v in events.items()}
+    check(n_diff(again, logits) == 0 and calls == {
+        "weight products": per_fwd["gemm_hilo"], "encoder": E, "decoder self": L, "cross": L},
+          f"serve-encdec: the forward again, bitwise, its calls by part {calls}")
+    print(f"serve-encdec: {smi_line()}; the forward over {T} frames and {ENCDEC_TEXT} tokens "
+          f"{t_fwd:.3f} ms (host clock; {run['forward_ms']:.3f} on the main path), by part "
+          f"(CUDA events): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in fparts.items())
+          + f"; the rest {t_fwd - sum(fparts.values()):.3f} ms", flush=True)
+    del again
+    # ROADMAP queue 3, item 16: the decode's cross-attention adds exactly 0
+    amax, real = [], attention.cross_decode_step
+
+    def spy(*args):
+        out = real(*args)
+        amax.append(out.abs().amax())
+        return out
+
+    attention.cross_decode_step = spy
+    try:
+        check_routes_bitwise("serve-encdec", model, steps, 0)
+    finally:
+        attention.cross_decode_step = real
+    top = float(torch.stack(amax).max())
+    check(len(amax) == 4 * L and top == 0.0,
+          f"serve-encdec: each decode step's cross-attention output is exactly 0 in all {L} "
+          f"layers ({len(amax)} calls over the 2 replayed steps on both routes, max |out| "
+          f"{top}): the cross cache is never filled (ROADMAP queue 3, item 16)")
+    replay_fp64("serve-encdec", model, steps)
+    launches = run["launches"]
+    del model, run, steps, logits
+    return launches
+
+
+def serve_vlm_phase(dev):
+    """qwen2-vl-72b at its published widths, cut to its first two layers;
+    returns the launch counts of its main path."""
+    import torch
+
+    from repro_torch.configs import base, registry
+    from repro_torch.core import dispatch
+    from repro_torch.core.policy import column_blocks
+    from repro_torch.models.transformer import Model
+
+    cfg = registry.get_config(SERVE_VLM_ARCH, policy_name="ozaki2_int8", compute_dtype="float32",
+                              param_dtype="bfloat16", num_layers=VLM_LAYERS)
+    full = registry.get_config(SERVE_VLM_ARCH)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    head = column_blocks(cfg.d_model, cfg.vocab_size)
+    print(f"serve-vlm: {smi_line()}; {cfg.name}: d_model {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"({cfg.mlp_act}), vocab {cfg.vocab_size} (untied), M-RoPE sections "
+          f"{cfg.mrope_sections}, theta {cfg.rope_theta:g}; param_count {cfg.param_count()}, "
+          f"{n_params} weights with the norms, in {cfg.param_dtype}, made on the card from a "
+          f"seed in {t_build:.3f} s; policy {cfg.policy_name}, compute {cfg.compute_dtype}; the "
+          f"LM head's product in {len(head)} column blocks ({[b - a for a, b in head]}). "
+          f"Reduced: depth {L} of {full.num_layers} layers (the full {full.param_count()} "
+          f"weights fit on no single card), bfloat16 storage, seeded weights in place of the "
+          f"checkpoint, the vision frontend a stub (seeded patch embeddings); widths not cut",
+          flush=True)
+    per = products_per_call(cfg)
+    check(per == products_per_call(cfg, forward=True) == {
+        "gemm_hilo": 7 * L + len(head), "gemv_hilo": 0, "attention_fused": L},
+          f"serve-vlm: a call launches gemm_hilo 7 a layer and {len(head)} for the LM head's "
+          f"column blocks, attention_fused 1 a layer ({per})")
+    rows, cols = VLM_GRID
+    batch = registry.concrete_batch(cfg, base.SHAPES[1], batch=1, seq=rows * cols,
+                                    seed=SEED + 11, device=dev)
+    text_positions = batch.pop("positions")
+    del batch["labels"]
+    i = torch.arange(rows * cols, device=dev, dtype=torch.int32)
+    batch["positions"] = torch.stack([0 * i, i // cols, i % cols])[None]   # t, h, w
+    run = serve_requests("serve-vlm", model, dev, SEED + 10, {
+        "matmul": (dispatch, "matmul"), "attention": (dispatch, "attention")}, batch)
+    n, part, steps = run["n"], run["part"], run["steps"]
+    check(run["calls"] == {"matmul": per["gemm_hilo"] * n, "attention": L * n},
+          f"serve-vlm: per decode step one timed matmul per weight block and one attention "
+          f"call per layer ({run['calls']})")
+    rest = run["step_ms"] - part["matmul"] - part["attention"]
+    print(f"serve-vlm: {smi_line()}; a decode step over {L} layers (CUDA events, mean): weight "
+          f"products (dispatch.matmul, Phase 1 included) {part['matmul']:.3f} ms; "
+          f"dispatch.attention {part['attention']:.3f} ms; the rest (M-RoPE angles, norms, "
+          f"embedding, host) {rest:.3f} ms", flush=True)
+    # the same embeddings with three equal streams: M-RoPE moved the output
+    text = model.apply({"embeds": batch["embeds"], "positions": text_positions})[0]
+    moved = n_diff(run["logits"], text)
+    check(moved > 0 and bool(torch.isfinite(text).all()),
+          f"serve-vlm: the {rows} x {cols} grid's positions (t = 0, h = row, w = column) against "
+          f"three equal streams over the same embeddings: {moved} of {text.numel()} logits "
+          f"differ (max |diff| {float((run['logits'] - text).abs().max()):.3e})")
+    del text
+    check_routes_bitwise("serve-vlm", model, steps, 0)
+    replay_fp64("serve-vlm", model, steps)
+    launches = run["launches"]
+    del model, run, steps, batch
     return launches
 
 
@@ -2538,7 +2799,8 @@ def main():
     stamp("serve-moe")
     gc.collect()       # its engine and model sit in a reference cycle too
     torch.cuda.empty_cache()
-    for name, phase in (("serve-ssm", serve_ssm_phase), ("serve-hybrid", serve_hybrid_phase)):
+    for name, phase in (("serve-ssm", serve_ssm_phase), ("serve-hybrid", serve_hybrid_phase),
+                        ("serve-encdec", serve_encdec_phase), ("serve-vlm", serve_vlm_phase)):
         counts = phase(dev)
         attention_kernel["launches"] += counts["attention_fused"]
         GEMM_LAUNCHES[name] = counts["gemm_hilo"]

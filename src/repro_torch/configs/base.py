@@ -7,9 +7,8 @@ same family for CPU tests).
 Layer topology is a repeating ``pattern`` of ``BlockCfg`` entries (mixer kind +
 MLP kind + attention window): ``num_layers // period`` periods plus a tail of
 the pattern's first ``num_layers % period`` blocks (gemma3's 34 = 5·6 + 4).
-Dtype names map to torch dtypes.  The reference's fields that only training,
-its dry run or the unported layers read (remat, force_unroll, encoder frames,
-frontends, M-RoPE sections) come with the slice that reads them.
+Dtype names map to torch dtypes.  The reference's fields that only training
+reads (remat, force_unroll) come with ROADMAP slice 10, which reads them.
 """
 
 from __future__ import annotations
@@ -60,6 +59,7 @@ class ModelConfig:
     mlp_act: str = "swiglu"          # swiglu | geglu (gated; d_ff = hidden width) | relu2
     rope_theta: float = 10_000.0
     rope_type: str = "standard"      # standard | mrope | none
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     moe: Optional[MoECfg] = None
     # SSM / xLSTM
     ssm_state_dim: int = 16
@@ -67,6 +67,8 @@ class ModelConfig:
     ssm_expand: int = 2
     # encoder-decoder
     encoder_layers: int = 0
+    encoder_seq: int = 0             # e.g. whisper: 1500 frames
+    frontend: Optional[str] = None   # audio | vision | None (stubs: inputs are embeddings)
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

@@ -71,10 +71,13 @@ def params_from_jax(tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
     ``repro`` stacks the layers of each pattern period on a leading axis
     (``"stack"`` -> ``"b{j}"``, period i, block j is layer i * period + j) and
     keeps the remainder as ``"tail{j}"`` (layer num_periods * period + j); the
-    port names every layer ``layers.{index}``.  Every leaf unstacks alike: an
-    MoE layer's router (d, E), its stacked experts ((E, d, f), (E, f, d)) and
-    its shared experts come out as that layer's ``mlp.router.w``,
-    ``mlp.experts.*`` and ``mlp.shared.*``.
+    port names every layer ``layers.{index}``.  An encoder-decoder's encoder
+    layers are stacked on one leading axis (``"encoder"``); the port names them
+    ``encoder.{index}``.  Every leaf unstacks alike: an MoE layer's router (d,
+    E), its stacked experts ((E, d, f), (E, f, d)) and its shared experts come
+    out as that layer's ``mlp.router.w``, ``mlp.experts.*`` and
+    ``mlp.shared.*``; a decoder layer's cross-attention as ``cross.*`` and
+    ``norm_cross.*``.
     """
     state: Dict[str, np.ndarray] = {}
     stack = tree.get("stack", {})
@@ -90,7 +93,12 @@ def params_from_jax(tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
     tails = sorted((k for k in tree if k.startswith("tail")), key=lambda k: int(k[4:]))
     for k in tails:
         _flatten(tree[k], f"layers.{periods * period + int(k[4:])}.", state)
+    encoder: Dict[str, np.ndarray] = {}
+    _flatten(tree.get("encoder", {}), "", encoder)
+    for name, arr in encoder.items():
+        for i in range(arr.shape[0]):
+            state[f"encoder.{i}.{name}"] = arr[i]
     for key, val in tree.items():
-        if key != "stack" and key not in tails:
+        if key not in ("stack", "encoder") and key not in tails:
             _flatten({key: val}, "", state)
     return from_numpy(state, device)

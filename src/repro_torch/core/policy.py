@@ -34,6 +34,24 @@ from repro_torch.obs import telemetry as obs
 
 POLICIES = ("bf16", "fp32", "fp64", "ozaki2_int8", "ozaki2_fp8", "ozaki1_int8")
 
+# An emulated forward product whose weight has more elements than this runs
+# over blocks of the weight's columns, one after another: Phase 1 holds about
+# eight float64-sized copies of its operand at once, ~80 GB for qwen2-vl-72b's
+# 8192 x 152064 LM head.  Each column of the result depends only on its own
+# column (B scales per column; the plan and A's Phase 1 depend on k, not n),
+# so the blocks give the whole product's bits.
+DOT_MAX_W = 1 << 28
+
+
+def column_blocks(k: int, n: int):
+    """The column ranges [(j0, j1), ...] over which ``Policy.dot`` runs the
+    emulated forward product of a k x n weight: one block up to DOT_MAX_W
+    elements, else blocks of the most multiples of 128 columns that fit."""
+    if k * n <= DOT_MAX_W:
+        return [(0, n)]
+    step = max(128, DOT_MAX_W // k // 128 * 128)
+    return [(j, min(j + step, n)) for j in range(0, n, step)]
+
 
 class Ozaki2Dot(torch.autograd.Function):
     """C = A @ B through ``dispatch.matmul`` with the plan given, differentiable.
@@ -110,7 +128,10 @@ class Policy:
         matmul) in float64 on the flattened leading dims with the cached plan
         for k on their substrate; ozaki1_int8 runs ``Ozaki1Dot``
         (``ozaki1.emulated_matmul``) in float64 on the flattened leading dims.
-        Every path has a gradient.
+        Every path has a gradient.  Where no gradient is recorded, an emulated
+        product runs over ``column_blocks`` of w, each converted to float64 on
+        its own (the same bits as one product; with a gradient dA = g·Bᵀ
+        contracts over all n at once, so the product stays whole).
         """
         if self.name == "bf16":
             bf = torch.bfloat16
@@ -121,14 +142,17 @@ class Policy:
             return torch.matmul(x.double(), w.double()).to(x.dtype)
         lead = tuple(x.shape[:-1])
         x2 = x.double().reshape(-1, x.shape[-1])
+        grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+        blocks = [(0, w.shape[-1])] if grad else column_blocks(*w.shape)
         if self.name in ("ozaki2_int8", "ozaki2_fp8"):
             plan = dispatch.get_plan(x.shape[-1], self.payload_bits,
                                      substrate=self.name.split("_")[1])
-            out = Ozaki2Dot.apply(x2, w.double(), plan)
+            outs = [Ozaki2Dot.apply(x2, w[:, j0:j1].double(), plan) for j0, j1 in blocks]
         elif self.name == "ozaki1_int8":
-            out = Ozaki1Dot.apply(x2, w.double())
+            outs = [Ozaki1Dot.apply(x2, w[:, j0:j1].double()) for j0, j1 in blocks]
         else:
             raise AssertionError(self.name)
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
         return out.reshape(lead + (w.shape[-1],)).to(x.dtype)
 
     def matmul_flops_multiplier(self) -> int:

@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
         --policy ozaki2_int8 --compute-dtype float32 --device cpu
 
-``--arch`` takes any arch of ``configs.registry`` (minitron-4b, yi-6b, gemma-7b,
-gemma3-4b, jamba-1.5-large-398b, deepseek-moe-16b, llama4-scout-17b-a16e,
-xlstm-350m).
+``--arch`` takes any arch of ``configs.registry`` (whisper-medium, qwen2-vl-72b,
+minitron-4b, yi-6b, gemma-7b, gemma3-4b, jamba-1.5-large-398b, deepseek-moe-16b,
+llama4-scout-17b-a16e, xlstm-350m).  Requests are text: whisper's decode attends
+over a cross cache of zeros (it takes no audio, as in the reference; ROADMAP
+queue 3, item 16), and qwen2-vl's three M-RoPE streams are equal.
 
 Weights and prompts are random, from seed 0, on ``--device`` (default
 ``cuda``; asking for ``cuda`` without a card raises).

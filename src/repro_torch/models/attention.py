@@ -1,10 +1,13 @@
-"""GQA attention with sliding windows and ring-buffer KV caches (``repro.models.attention``).
+"""GQA attention with sliding windows, cross-attention and ring-buffer KV caches
+(``repro.models.attention``).
 
 Shapes: activations (B, S, d_model); q (B, S, H, D); k/v (B, S, Hkv, D).  GQA
 groups H // Hkv query heads per KV head.  Sliding-window layers keep a cache of
 only ``window`` positions (ring buffer).  Under an emulated policy the whole
-score path goes through the dispatch seam's ``attention`` kind: the fused
-Hopper kernel on the card, its bitwise-equal reference elsewhere.
+score path of self- and cross-attention goes through the dispatch seam's
+``attention`` kind: the fused Hopper kernel on the card, its bitwise-equal
+reference elsewhere.  The decode step's cross-attention (``cross_decode_step``)
+is the reference's native softmax over the cross cache under every policy.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from repro_torch.models import layers
 NEG_INF = -1e30
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+def attn_init(gen: torch.Generator, cfg: ModelConfig, cross: bool = False) -> Dict:
+    """wq, wk, wv and wo; a cross-attention layer (``cross``) has the same four."""
     d, dt = cfg.d_model, cfg.param_torch_dtype
     return {
         "wq": layers.dense_init(gen, d, cfg.num_heads * cfg.head_dim, dt),
@@ -144,6 +148,34 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, policy: Policy,
     else:
         attn_out = _attn_direct(q, k, v, cfg, window, causal, x.dtype)
     return layers.dense_apply(params["wo"], attn_out, policy)
+
+
+def cross_attn_apply(params: Dict, x: torch.Tensor, enc_out: torch.Tensor,
+                     cfg: ModelConfig, policy: Policy) -> torch.Tensor:
+    """Encoder-decoder cross attention (no RoPE, no mask): queries from x (B, S,
+    d), keys and values from enc_out (B, T, d)."""
+    q, k, v = _qkv(params, x, enc_out, cfg, policy)
+    if policy.is_emulated:
+        attn_out = _emulated_attn(q, k, v, cfg, None, x.dtype)
+        return layers.dense_apply(params["wo"], attn_out, policy)
+    scores = _gqa_scores(q, k, cfg).float()
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    return layers.dense_apply(params["wo"], _gqa_out(probs, v, cfg), policy)
+
+
+def cross_decode_step(params: Dict, x: torch.Tensor, cross_kv: Dict, cfg: ModelConfig,
+                      policy: Policy) -> torch.Tensor:
+    """A decode step's cross attention over the cross cache ``{"k", "v"}`` (B, T,
+    Hkv, D): the reference's native einsums and float32 softmax under every
+    policy; only the wq and wo products go through the policy.
+
+    The cache is never filled (the reference's decode takes no encoder input),
+    so it holds zeros and this returns exactly 0 (ROADMAP queue 3, item 16)."""
+    q = _split_heads(layers.dense_apply(params["wq"], x, policy), cfg.num_heads, cfg.head_dim)
+    scores = _gqa_scores(q, cross_kv["k"].to(q.dtype), cfg)
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    out = _gqa_out(probs, cross_kv["v"].to(x.dtype), cfg)
+    return layers.dense_apply(params["wo"], out, policy)
 
 
 # ---------------------------------------------------------------------------

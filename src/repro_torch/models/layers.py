@@ -107,6 +107,30 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
     return torch.sin(ang), torch.cos(ang)
 
 
+def mrope_positions(positions3: torch.Tensor, sections: Tuple[int, int, int]) -> torch.Tensor:
+    """positions3 (B, 3, S) -> float32 (B, S, sum(sections)): frequency j takes
+    the position of the stream that owns it, the first ``sections[0]``
+    frequencies stream t, the next ``sections[1]`` stream h, the rest stream w."""
+    dev = positions3.device
+    sec_id = torch.repeat_interleave(torch.arange(3, device=dev),
+                                     torch.tensor(sections, device=dev))   # (half,) owner
+    return positions3.float()[:, sec_id, :].transpose(1, 2)
+
+
+def mrope_angles(positions3: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL M-RoPE: three position streams (t, h, w) own disjoint frequency
+    sections of the rotary half-space.  positions3 (B, 3, S) -> (sin, cos) of
+    shape (B, S, head_dim // 2), float32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {half}")
+    inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                             device=positions3.device) / half))
+    ang = mrope_positions(positions3, sections) * inv_freq                # (B, S, half)
+    return torch.sin(ang), torch.cos(ang)
+
+
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, D); sin/cos: (B, S, D//2) or (S, D//2)."""
     half = x.shape[-1] // 2

@@ -1,13 +1,17 @@
-"""The decoder stack (``repro.models.transformer``): full-sequence forward and
-single-token decode with typed caches.
+"""Model assembly (``repro.models.transformer``): the decoder and
+encoder-decoder families, full-sequence forward and single-token decode with
+typed caches.
 
 ``Model`` is an ``nn.Module`` holding one parameter tree per layer; layers run
 as a Python loop over them (the reference stacks the layers of each pattern
 period and scans over the stack).  A layer's mixer is attention (a ring-buffer
 KV cache) or one of the recurrent mixers of ``models.ssm``, Mamba, mLSTM or
 sLSTM (a state of fixed size); its MLP is dense, MoE (``models.moe``) or none.
-The encoder-decoder family is the rest of ROADMAP slice 8 and raises
-``NotImplementedError``.
+The ``encdec`` family (whisper) adds an encoder of non-causal attention blocks
+over frame embeddings (``encoder.{i}``, ``enc_norm``, ``enc_pos``) and a
+cross-attention in every decoder layer; its decode attends over a cross cache
+of zeros, as the reference's does (ROADMAP queue 3, item 16).  ``rope_type``
+"mrope" (qwen2-vl) takes three position streams (B, 3, S) with the embeddings.
 """
 
 from __future__ import annotations
@@ -31,11 +35,13 @@ def _recurrent(blk: BlockCfg, fn: str):
     return getattr(ssm, f"{blk.mixer}_{fn}")
 
 
+# The encoder's layers: attention with a dense MLP, no cross-attention.
+ENC_BLOCK = BlockCfg(mixer="attn", mlp="dense")
+
+
 def _check_block(cfg: ModelConfig, blk: BlockCfg) -> None:
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP slice 8, the "
-            f"rest: the encoder-decoder family); the port builds decoders")
+    if cfg.family not in ("decoder", "encdec"):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if blk.mixer != "attn" and blk.mixer not in RECURRENT:
         raise ValueError(f"{cfg.name}: unknown mixer {blk.mixer!r}")
     if blk.mlp not in ("dense", "moe", "none"):
@@ -46,13 +52,18 @@ def _check_block(cfg: ModelConfig, blk: BlockCfg) -> None:
 # Single block
 # ---------------------------------------------------------------------------
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, blk: BlockCfg) -> Dict:
-    """norm1 and the mixer; norm2 and the MLP unless the block has none."""
+def block_init(gen: torch.Generator, cfg: ModelConfig, blk: BlockCfg,
+               decoder: bool = True) -> Dict:
+    """norm1 and the mixer; in an encoder-decoder's decoder layer norm_cross and
+    the cross-attention; norm2 and the MLP unless the block has none."""
     _check_block(cfg, blk)
     dt = cfg.param_torch_dtype
     p = {"norm1": layers.rmsnorm_init(cfg.d_model, dt, gen.device),
          "mixer": (attention.attn_init(gen, cfg) if blk.mixer == "attn" else
                    _recurrent(blk, "init")(gen, cfg))}
+    if cfg.family == "encdec" and decoder:
+        p["norm_cross"] = layers.rmsnorm_init(cfg.d_model, dt, gen.device)
+        p["cross"] = attention.attn_init(gen, cfg, cross=True)
     if blk.mlp != "none":
         p["norm2"] = layers.rmsnorm_init(cfg.d_model, dt, gen.device)
         p["mlp"] = (moe.moe_init(gen, cfg) if blk.mlp == "moe" else
@@ -74,37 +85,56 @@ def _mlp(p: Dict, x: torch.Tensor, blk: BlockCfg, cfg: ModelConfig, policy: Poli
 
 
 def block_apply(p: Dict, x: torch.Tensor, blk: BlockCfg, cfg: ModelConfig, policy: Policy,
-                sin, cos, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x, aux loss) after the block."""
+                sin, cos, enc_out: Optional[torch.Tensor] = None,
+                causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, aux loss) after the block; a decoder layer with a cross-attention
+    attends to ``enc_out`` after its mixer."""
     h = layers.rmsnorm_apply(p["norm1"], x)
     if blk.mixer == "attn":
         mo = attention.attn_apply(p["mixer"], h, cfg, policy, sin, cos, window=blk.window,
                                   causal=causal)
     else:
         mo = _recurrent(blk, "apply")(p["mixer"], h, cfg, policy)
-    return _mlp(p, x + mo, blk, cfg, policy)
+    x = x + mo
+    if enc_out is not None and "cross" in p:
+        hc = layers.rmsnorm_apply(p["norm_cross"], x)
+        x = x + attention.cross_attn_apply(p["cross"], hc, enc_out, cfg, policy)
+    return _mlp(p, x, blk, cfg, policy)
 
 
 def block_cache_init(cfg: ModelConfig, blk: BlockCfg, batch: int, seq_len: int,
-                     device) -> Dict:
+                     device, enc_seq: int = 0) -> Dict:
     """An attention layer's KV cache ``{"kv": ...}``, or a recurrent mixer's
-    state ``{"ssm": ...}``."""
+    state ``{"ssm": ...}``; in an encoder-decoder with ``enc_seq`` frames also
+    the cross cache ``{"cross_kv": ...}``, zeros of (batch, enc_seq, Hkv, D) in
+    the compute dtype."""
     if blk.mixer == "attn":
-        return {"kv": attention.cache_init(cfg, batch, seq_len, blk.window, device=device)}
-    return {"ssm": _recurrent(blk, "state_init")(cfg, batch, device)}
+        c = {"kv": attention.cache_init(cfg, batch, seq_len, blk.window, device=device)}
+    else:
+        c = {"ssm": _recurrent(blk, "state_init")(cfg, batch, device)}
+    if cfg.family == "encdec" and enc_seq:
+        shape = (batch, enc_seq, cfg.num_kv_heads, cfg.head_dim)
+        dt = cfg.compute_torch_dtype
+        c["cross_kv"] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                         "v": torch.zeros(shape, dtype=dt, device=device)}
+    return c
 
 
 def block_decode_step(p: Dict, x: torch.Tensor, cache: Dict, blk: BlockCfg, cfg: ModelConfig,
                       policy: Policy, pos: int, sin, cos) -> Tuple[torch.Tensor, Dict]:
+    new_cache = dict(cache)
     h = layers.rmsnorm_apply(p["norm1"], x)
     if blk.mixer == "attn":
-        mo, kv = attention.attn_decode_step(p["mixer"], h, cache["kv"], pos, cfg, policy, sin,
-                                            cos, window=blk.window)
-        new_cache = {"kv": kv}
+        mo, new_cache["kv"] = attention.attn_decode_step(p["mixer"], h, cache["kv"], pos, cfg,
+                                                         policy, sin, cos, window=blk.window)
     else:
-        mo, st = _recurrent(blk, "decode_step")(p["mixer"], h, cache["ssm"], cfg, policy)
-        new_cache = {"ssm": st}
-    x, _ = _mlp(p, x + mo, blk, cfg, policy)
+        mo, new_cache["ssm"] = _recurrent(blk, "decode_step")(p["mixer"], h, cache["ssm"], cfg,
+                                                              policy)
+    x = x + mo
+    if "cross_kv" in cache and "cross" in p:
+        hc = layers.rmsnorm_apply(p["norm_cross"], x)
+        x = x + attention.cross_decode_step(p["cross"], hc, cache["cross_kv"], cfg, policy)
+    x, _ = _mlp(p, x, blk, cfg, policy)
     return x, new_cache
 
 
@@ -146,8 +176,9 @@ def _unflatten(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """A decoder over ``cfg``: ``embed``, ``layers.{i}``, ``final_norm`` and
-    ``lm_head`` (absent with tied embeddings).  Build its weights with
+    """A model over ``cfg``: ``embed``, ``layers.{i}``, ``final_norm`` and
+    ``lm_head`` (absent with tied embeddings); an encoder-decoder also
+    ``encoder.{i}``, ``enc_norm`` and ``enc_pos``.  Build its weights with
     ``init(generator)`` or carry them in with ``load(state)``."""
 
     def __init__(self, cfg: ModelConfig):
@@ -178,6 +209,12 @@ class Model(nn.Module):
         }
         if not cfg.tie_embeddings:
             tree["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
+        if cfg.family == "encdec":
+            tree["encoder"] = {str(i): block_init(gen, cfg, ENC_BLOCK, decoder=False)
+                               for i in range(cfg.encoder_layers)}
+            tree["enc_norm"] = layers.rmsnorm_init(cfg.d_model, dt, gen.device)
+            tree["enc_pos"] = torch.empty((cfg.encoder_seq, cfg.d_model), dtype=dt,
+                                          device=gen.device).normal_(generator=gen) * 0.02
         return self._set(tree)
 
     def load(self, state: Dict[str, torch.Tensor]) -> "Model":
@@ -185,23 +222,36 @@ class Model(nn.Module):
         return self._set(_unflatten(state))
 
     def _set(self, tree: Dict[str, Any]) -> "Model":
+        cfg = self.cfg
         self.embed = ParamTree(tree["embed"])
         self.final_norm = ParamTree(tree["final_norm"])
         self.layers = nn.ModuleList(ParamTree(tree["layers"][str(i)])
-                                    for i in range(self.cfg.num_layers))
-        if not self.cfg.tie_embeddings:
+                                    for i in range(cfg.num_layers))
+        if not cfg.tie_embeddings:
             self.lm_head = ParamTree(tree["lm_head"])
+        if cfg.family == "encdec":
+            self.encoder = nn.ModuleList(ParamTree(tree["encoder"][str(i)])
+                                         for i in range(cfg.encoder_layers))
+            self.enc_norm = ParamTree(tree["enc_norm"])
+            self.enc_pos = nn.Parameter(tree["enc_pos"], requires_grad=False)
         return self
 
     # --- shared pieces --------------------------------------------------------
 
-    def _rope(self, positions: torch.Tensor):
+    def _rope(self, positions: torch.Tensor, batch: Optional[int] = None):
+        """(sin, cos) for ``positions``: (S,) for every rope type, or (B, 3, S)
+        M-RoPE streams; text-only positions give M-RoPE three equal streams."""
         cfg = self.cfg
         if cfg.rope_type == "none":
             z = torch.zeros((positions.shape[-1], cfg.head_dim // 2), device=positions.device)
             return z, 1.0 + z
+        if cfg.rope_type == "mrope":
+            if positions.ndim == 1:
+                positions = positions[None, None, :].expand(batch or 1, 3, positions.shape[0])
+            return layers.mrope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                                       cfg.mrope_sections)
         if cfg.rope_type != "standard":
-            raise NotImplementedError(f"rope {cfg.rope_type!r} is ROADMAP slice 8")
+            raise ValueError(f"{cfg.name}: unknown rope_type {cfg.rope_type!r}")
         return layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
@@ -218,22 +268,39 @@ class Model(nn.Module):
         x = layers.embed_apply(self.embed.tree(), tokens, cfg.compute_torch_dtype)
         return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
 
+    def _encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder over frame embeddings (B, T, d): ``enc_pos`` added,
+        non-causal attention blocks with RoPE over arange(T), ``enc_norm``."""
+        cfg = self.cfg
+        x = enc_embeds.to(cfg.compute_torch_dtype)
+        x = x + self.enc_pos.to(x.dtype)[None, :x.shape[1]]
+        sin, cos = self._rope(torch.arange(x.shape[1], device=x.device))
+        for p in self.encoder:
+            x, _ = block_apply(p.tree(), x, ENC_BLOCK, cfg, self.policy, sin, cos, causal=False)
+        return layers.rmsnorm_apply(self.enc_norm.tree(), x)
+
     # --- forward (prefill) ------------------------------------------------------
 
     @torch.no_grad()
     def apply(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """batch: {"tokens" (B, S) int | "embeds" (B, S, d)}; returns
+        """batch: {"tokens" (B, S) int | "embeds" (B, S, d)} [+ "positions" (B, 3,
+        S) for M-RoPE, "enc_embeds" (B, T, d) for an encoder-decoder]; returns
         (logits float32 (B, S, V), the layers' summed aux loss)."""
         cfg = self.cfg
         if "embeds" in batch:
             x = batch["embeds"].to(cfg.compute_torch_dtype)
         else:
             x = self._embed(batch["tokens"])
-        S = x.shape[1]
-        sin, cos = self._rope(torch.arange(S, device=x.device))
+        B, S = x.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        sin, cos = self._rope(positions, batch=B)
+        enc_out = self._encode(batch["enc_embeds"]) if cfg.family == "encdec" else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, p in enumerate(self.layers):
-            x, a = block_apply(p.tree(), x, cfg.block_at(i), cfg, self.policy, sin, cos)
+            x, a = block_apply(p.tree(), x, cfg.block_at(i), cfg, self.policy, sin, cos,
+                               enc_out=enc_out)
             aux = aux + a
         return self._head(x), aux
 
@@ -241,8 +308,10 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, seq_len: int) -> List[Dict]:
         """A cache per layer: a ring-buffer KV cache in the compute dtype
-        (attention), or a float32 state (the recurrent mixers)."""
-        return [block_cache_init(self.cfg, self.cfg.block_at(i), batch, seq_len, self.device)
+        (attention), or a float32 state (the recurrent mixers); an
+        encoder-decoder's layers also hold a cross cache of zeros."""
+        return [block_cache_init(self.cfg, self.cfg.block_at(i), batch, seq_len, self.device,
+                                 enc_seq=self.cfg.encoder_seq)
                 for i in range(self.cfg.num_layers)]
 
     @torch.no_grad()
@@ -253,7 +322,7 @@ class Model(nn.Module):
         the reference."""
         cfg = self.cfg
         x = self._embed(tokens)
-        sin, cos = self._rope(torch.full((1,), int(pos), device=x.device))
+        sin, cos = self._rope(torch.full((1,), int(pos), device=x.device), batch=x.shape[0])
         new_cache: List[Optional[Dict]] = []
         for i, p in enumerate(self.layers):
             x, c = block_decode_step(p.tree(), x, cache[i], cfg.block_at(i), cfg, self.policy,

@@ -569,6 +569,68 @@ def test_cuda_spmv_odd_and_even_widths(cuda_device, bw, br):
 
 
 @pytest.mark.cuda
+def test_cuda_attention_at_whispers_encoder_shape(cuda_device):
+    """whisper-medium's encoder attention: 16 heads x 1500 x 1500 at D = 64 with
+    no mask (an all-ones mask; the last key block holds 1500 - 11 x 128 = 92
+    keys), bitwise against the plain version at two bq."""
+    B, S, D = 16, 1500, 64
+    q, k, v = (_randn(cuda_device, B, S, D) for _ in range(3))
+    mask = torch.ones((B, S, S), dtype=torch.int8, device=cuda_device)
+    pq, pp = dispatch.get_plan(D), dispatch.get_plan(128)
+    want = ozaki_attention.attention_ref(q, k, v, mask, pq, pp, 0.0, 128)
+    for bq in (32, 8):
+        got = ozaki_attention.attention_fused(q, k, v, mask, pq, pp, 0.0, bq=bq, bkv=128)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got = dispatch.attention(q, k, v)
+    torch.testing.assert_close(got, dispatch.attention(q, k, v, mode="ref"), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-72b"])
+def test_cuda_encdec_and_vision_forward_routes_bitwise(cuda_device, arch):
+    """whisper-smoke's forward (encoder, cross-attention at S != T) and
+    qwen2-vl-smoke's over patch embeddings with three distinct M-RoPE streams,
+    under ozaki2_int8: kernel and reference routes bitwise, the kernel route
+    launching gemm_hilo and attention_fused."""
+    cfg = registry.get_config(arch, smoke=True, policy_name="ozaki2_int8",
+                              compute_dtype="float32")
+    model = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(9))
+    batch = registry.concrete_batch(cfg, registry.SHAPES[0], batch=2, seq=10, seed=4,
+                                    device=cuda_device)
+    del batch["labels"]
+    if "positions" in batch:
+        i = torch.arange(10, device=cuda_device, dtype=torch.int32)
+        batch["positions"] = torch.stack([0 * i, i // 5, i % 5])[None].expand(2, 3, 10)
+    before = (ozaki_gemm.gemm_hilo.launches, ozaki_attention.attention_fused.launches)
+    out = {}
+    for m in ("kernel", "ref"):
+        with dispatch.mode_scope(m):
+            out[m] = model.apply(batch)[0]
+    torch.testing.assert_close(out["kernel"], out["ref"], rtol=0, atol=0)
+    assert bool(torch.isfinite(out["kernel"]).all())
+    attn = cfg.encoder_layers + 2 * cfg.num_layers if cfg.family == "encdec" else cfg.num_layers
+    assert ozaki_attention.attention_fused.launches == before[1] + attn
+    assert ozaki_gemm.gemm_hilo.launches > before[0]
+
+
+@pytest.mark.cuda
+def test_cuda_policy_dot_column_blocks_bitwise(cuda_device, monkeypatch):
+    """A weight over DOT_MAX_W elements runs in column blocks: the same bits as
+    the whole product through the seam, on both routes."""
+    from repro_torch.core import policy as policy_mod
+
+    monkeypatch.setattr(policy_mod, "DOT_MAX_W", 512 * 300)
+    x = _randn(cuda_device, 2, 3, 512)
+    w = _randn(cuda_device, 512, 1000)
+    assert len(policy_mod.column_blocks(512, 1000)) == 4
+    for m in ("kernel", "ref"):
+        with dispatch.mode_scope(m):
+            got = Policy("ozaki2_int8").dot(x, w)
+            want = dispatch.dot(x, w)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 def test_cuda_yi6b_width_decode_step_routes_bitwise(cuda_device):
     cfg = registry.get_config("yi-6b", num_layers=2, policy_name="ozaki2_int8",
                               compute_dtype="float32")

@@ -26,7 +26,7 @@ from repro_torch.models.transformer import Model  # noqa: E402
 
 LOGIT_TOL = 64 * 2.0 ** -23
 PORTED = ["minitron-4b", "yi-6b", "gemma-7b", "gemma3-4b", "deepseek-moe-16b",
-          "llama4-scout-17b-a16e"]
+          "llama4-scout-17b-a16e", "whisper-medium", "qwen2-vl-72b"]
 
 
 def _models(arch, policy):
@@ -87,10 +87,13 @@ def test_configs_equal_the_reference(arch):
             (jcfg.param_count(), jcfg.active_param_count())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "gemma3-4b", "whisper-medium",
+                                  "qwen2-vl-72b"])
 def test_params_from_jax_round_trips_every_leaf_of(arch):
-    """deepseek's stacked experts ((periods, E, d, f) leaves) and gemma3's
-    period-6 stack with its 2-layer tail (8 = 6 + 2)."""
+    """deepseek's stacked experts ((periods, E, d, f) leaves), gemma3's
+    period-6 stack with its 2-layer tail (8 = 6 + 2), whisper's encoder stack
+    (``"encoder"`` -> ``encoder.{i}``, beside ``enc_pos``, ``enc_norm`` and its
+    decoder layers' ``cross`` and ``norm_cross``) and qwen2-vl's untied head."""
     cfg = registry.get_config(arch, smoke=True)
     tree = jax.tree.map(np.asarray, JModel(jreg.get_config(arch, smoke=True))
                         .init(jax.random.PRNGKey(13)))
@@ -103,6 +106,12 @@ def test_params_from_jax_round_trips_every_leaf_of(arch):
             for i in range(leaf.shape[0]):
                 name = ".".join(["layers", str(cfg.period * i + int(keys[1][1:]))] + keys[2:])
                 np.testing.assert_array_equal(state[name].numpy(), leaf[i])
+                n += 1
+        elif keys[0] == "encoder":
+            assert leaf.shape[0] == cfg.encoder_layers
+            for i in range(leaf.shape[0]):
+                np.testing.assert_array_equal(
+                    state[".".join(["encoder", str(i)] + keys[1:])].numpy(), leaf[i])
                 n += 1
         elif keys[0].startswith("tail"):
             layer = cfg.num_periods * cfg.period + int(keys[0][4:])
@@ -118,7 +127,13 @@ def test_params_from_jax_round_trips_every_leaf_of(arch):
             (cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert)
     else:
         assert {k.split(".")[1] for k in state if k.startswith("layers.")} == \
-            {str(i) for i in range(cfg.num_layers)} and "tail1" in tree
+            {str(i) for i in range(cfg.num_layers)}
+        assert ("tail1" in tree) == (arch == "gemma3-4b")
+    if cfg.family == "encdec":
+        assert {k.split(".")[1] for k in state if k.startswith("encoder.")} == \
+            {str(i) for i in range(cfg.encoder_layers)}
+        assert {"enc_pos", "enc_norm.scale", "layers.0.cross.wo.w",
+                "layers.0.norm_cross.scale"} <= set(state)
     assert set(Model(cfg).load(state).state_dict()) == set(state)
 
 
@@ -126,6 +141,7 @@ def test_runnable_cells_are_the_references_restricted():
     got = [(a, s.name) for a, s in registry.runnable_cells()]
     want = [(a, s.name) for a, s in jreg.runnable_cells() if a in registry.ARCHS]
     assert got == want and ("gemma3-4b", "long_500k") in got
+    assert list(registry.ARCHS) == list(jreg.ARCHS) and len(got) == 33
     assert registry.SUBQUADRATIC == tuple(a for a in jreg.SUBQUADRATIC if a in registry.ARCHS)
     long = base.SHAPES[-1]
     assert registry.cell_is_runnable("yi-6b", long)[0] is False
@@ -141,12 +157,22 @@ def test_concrete_batch_is_the_references():
     assert set(got) == set(want) == {"tokens", "labels"}
     for k in got:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        registry.concrete_batch(dataclasses.replace(cfg, family="encdec"), shape, 2,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        registry.concrete_batch(dataclasses.replace(cfg, rope_type="mrope"), shape, 2,
-                                device="cpu")
+    # whisper's frame embeddings and qwen2-vl's patch embeddings and M-RoPE
+    # streams, bfloat16 bit for bit
+    for arch, keys in (("whisper-medium", {"tokens", "enc_embeds", "labels"}),
+                       ("qwen2-vl-72b", {"embeds", "positions", "labels"})):
+        got = registry.concrete_batch(registry.get_config(arch, smoke=True), shape, batch=2,
+                                      seq=16, seed=5, device="cpu")
+        want = jreg.concrete_batch(jreg.get_config(arch, smoke=True),
+                                   jreg.SHAPES_BY_NAME[shape.name], batch=2, seq=16, seed=5)
+        assert set(got) == set(want) == keys
+        for k in got:
+            w = np.asarray(want[k])
+            assert tuple(got[k].shape) == w.shape
+            if got[k].dtype == torch.bfloat16:
+                np.testing.assert_array_equal(got[k].view(torch.int16).numpy(), w.view(np.int16))
+            else:
+                np.testing.assert_array_equal(got[k].numpy(), w)
 
 
 def test_serve_cli_serves_deepseek_on_the_host(capsys):

@@ -169,26 +169,35 @@ def test_registry_init_and_unported_layers():
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size) == (32, 4096, 32, 4, 128, 11008, 64000)
     assert cfg.param_count() == jreg.get_config("yi-6b").param_count()
-    assert registry.list_archs() == ["minitron-4b", "yi-6b", "gemma-7b", "gemma3-4b",
-                                     "jamba-1.5-large-398b", "deepseek-moe-16b",
-                                     "llama4-scout-17b-a16e", "xlstm-350m"]
-    for unported in ("whisper-medium", "no-such-arch"):
-        with pytest.raises(ValueError):
-            registry.get_config(unported)
+    assert registry.list_archs() == jreg.list_archs() == [
+        "whisper-medium", "qwen2-vl-72b", "minitron-4b", "yi-6b", "gemma-7b", "gemma3-4b",
+        "jamba-1.5-large-398b", "deepseek-moe-16b", "llama4-scout-17b-a16e", "xlstm-350m"]
+    with pytest.raises(ValueError):
+        registry.get_config("no-such-arch")
     small = registry.get_config("yi-6b", smoke=True, compute_dtype="float32")
     model = Model(small).init(torch.Generator().manual_seed(0))
     n = sum(p.numel() for p in model.parameters())
     assert n == small.param_count() + small.d_model * (2 * small.num_layers + 1)   # + norms
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        Model(registry.get_config("yi-6b", smoke=True, family="encdec"))
+    with pytest.raises(ValueError, match="unknown family"):
+        Model(registry.get_config("yi-6b", smoke=True, family="no-such-family"))
 
 
-@pytest.mark.parametrize("field", ["remat", "force_unroll", "mrope_sections",
-                                   "encoder_seq", "frontend"])
+@pytest.mark.parametrize("field", ["remat", "force_unroll"])
 def test_get_config_rejects_fields_the_port_does_not_read(field):
     assert hasattr(jreg.get_config("yi-6b"), field)      # the reference's knob
     with pytest.raises(TypeError):
         registry.get_config("yi-6b", **{field: None})
+
+
+@pytest.mark.parametrize("field", ["mrope_sections", "encoder_seq", "frontend"])
+def test_get_config_reads_the_encdec_and_mrope_fields(field):
+    """M-RoPE's sections, the encoder's frames and the stub frontend, with the
+    reference's value in every config, published and smoke."""
+    for arch in registry.list_archs():
+        for smoke in (False, True):
+            assert getattr(registry.get_config(arch, smoke=smoke), field) == \
+                getattr(jreg.get_config(arch, smoke=smoke), field)
+    assert getattr(registry.get_config("yi-6b", **{field: 5}), field) == 5
 
 
 @pytest.mark.parametrize("field", ["ssm_chunk", "lstm_chunk", "ssm_conv_width"])
