@@ -218,6 +218,22 @@ Phases (each prints its results; any failed check makes the script exit 1):
          (native FP64 from the same g); ozaki2_fp8 bitwise equal to ozaki2_int8;
          ozaki1_int8 within 16 u a product; both chains within VJP_CHAIN_TOL of
          the fp64 policy's.  Forward and backward times per policy.
+  train  yi-6b's training step at its published widths (d_model 4096, 32 heads
+         over 4 KV heads of 128, d_ff 11008 SwiGLU, vocab 64000), depth cut to
+         2 of its 32 layers, ozaki2_int8, float32 weights and compute, remat
+         on; batches of 4 x 512 from ``data.pipeline.Pipeline``, AdamW at its
+         defaults with float32 moments, 1 warm-up step.  The main path, launch
+         counts set to 0 just before and read just after: 3 steps of
+         ``train.loop.make_train_step`` on the kernel route, each launching
+         gemm_hilo 7 x 2 + 1 and attention_fused 2 in the forward, the same
+         in remat's recompute, and gemm_hilo 2 x 15 in the backward.  Step ms
+         (host clock) by part (forward, loss, backward, clip, update; CUDA
+         events), tokens/s, peak memory.  The warm-up step against the same
+         step on the reference route (loss, every gradient, the updated
+         parameters and both moments bitwise; no launch); every wq, wk and wv
+         gradient exactly 0 (ROADMAP queue 3, item 17), every other finite;
+         its loss within TRAIN_LOSS_TOL of the fp64 policy's, and the
+         relative gap of the LM head's and last MLP's gradients.
   tme    the TME model on the card: under ``telemetry_scope("counters")`` on the
          kernel route, DGEMM 8192^3 (3 calls), GEMV 8192^2 x 1, stencil7 256^3,
          HPCG 104^3 SpMV, attention at causal prefill 32 x 512 x 512 and decode
@@ -238,6 +254,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -295,6 +312,19 @@ VJP_ROWS = 16            # the rows of x in the vjp phase (a batch of tokens)
 # (max |difference| / max |fp64 gradient|), some 10^4 u of room for the
 # cancellations of sums over up to 64,000 terms.
 VJP_CHAIN_TOL = 1e-11
+
+TRAIN_ARCH = "yi-6b"
+TRAIN_LAYERS = 2         # of yi-6b's 32
+TRAIN_BATCH = 4          # sequences a step
+TRAIN_SEQ = 512          # tokens a sequence
+TRAIN_STEPS = 3          # timed steps after one warm-up step
+# The first step's loss under ozaki2_int8 against the fp64 policy's from the
+# same parameters and batch, relative: the weight products agree to FP64
+# accuracy, and the two attention paths (emulated FP64-accurate softmax, native
+# float32 softmax) differ in the last float32 bits of the activations.
+# Measured 0 on an H100 (the losses' float32 bits were equal; the LM head's
+# and last MLP's gradients within 1.4e-7), so 8 float32 epsilons of room.
+TRAIN_LOSS_TOL = 1e-6
 
 FAILURES = []
 KERNEL_MS = {}           # kernel times of this run that the tme phase reads
@@ -2469,6 +2499,234 @@ def vjp_phase(dev):
     return launches
 
 
+@contextlib.contextmanager
+def step_parts(targets):
+    """While the block runs, time each call of ``targets[name] = (owner,
+    attribute)`` between CUDA events and count the kernels launched inside it;
+    the recomputes of checkpointed layers (``transformer.recompute_scope``,
+    entered in the backward) are counted under "recompute".  Yields {name:
+    [(start event, end event, {kernel: launches})]}."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    parts = {name: [] for name in list(targets) + ["recompute"]}
+    real = {name: getattr(owner, attr) for name, (owner, attr) in targets.items()}
+
+    def delta(before):
+        now = launch_counts()
+        return {k: now[k] - before[k] for k in now}
+
+    def wrap(name):
+        def call(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            before = launch_counts()
+            a.record()
+            out = real[name](*args, **kw)
+            b.record()
+            parts[name].append((a, b, delta(before)))
+            return out
+        return call
+
+    real_scope = transformer.recompute_scope
+
+    @contextlib.contextmanager
+    def counted_scope(modes):
+        before = launch_counts()
+        try:
+            with real_scope(modes):
+                yield
+        finally:        # the checkpoint ends its recompute early by raising
+            parts["recompute"].append((None, None, delta(before)))
+
+    for name, (owner, attr) in targets.items():
+        setattr(owner, attr, wrap(name))
+    transformer.recompute_scope = counted_scope
+    try:
+        yield parts
+    finally:
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, real[name])
+        transformer.recompute_scope = real_scope
+
+
+def train_phase(dev):
+    """yi-6b's training step at full width on the kernel route; returns the
+    launches of the timed steps."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import dispatch
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = registry.get_config(TRAIN_ARCH, num_layers=TRAIN_LAYERS, policy_name="ozaki2_int8",
+                              compute_dtype="float32")
+    full = registry.get_config(TRAIN_ARCH)
+    opt_cfg = adamw.AdamWConfig()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train: {cfg.name} d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_layers} "
+          f"of {full.num_layers} layers; policy {cfg.policy_name}, {cfg.param_dtype} weights "
+          f"and compute {cfg.compute_dtype}, remat {cfg.remat}; AdamW {opt_cfg}, warm-up 1 "
+          f"step; batches of {TRAIN_BATCH} x {TRAIN_SEQ} from Pipeline", flush=True)
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED + 7))
+    init = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    n = sum(v.numel() for v in init.values())
+    lm = cfg.d_model * cfg.vocab_size
+    gib = 2.0 ** 30
+    print(f"train: {n} weights ({4 * n / gib:.2f} GiB float32); reckoned before the run: "
+          f"weights, gradients and the two moments {16 * n / gib:.2f} GiB, Ozaki2Dot's float64 "
+          f"copy of the LM head kept for its backward {8 * lm / gib:.2f} GiB (the layers' are "
+          f"recomputed under remat), Phase 1 of the LM head ~8 float64 copies "
+          f"{64 * lm / gib:.2f} GiB at once", flush=True)
+    pipe = Pipeline(DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED), cfg,
+                    device=dev)
+    batches = [next(pipe) for _ in range(1 + TRAIN_STEPS)]
+    pipe.close()
+
+    def fresh(model):
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(init[k])
+        return loop.make_train_step(model, opt_cfg, warmup_steps=1), \
+            adamw.adamw_init(dict(model.named_parameters()), opt_cfg)
+
+    def kept(res):
+        """A step's loss, gradients, moments and updated parameters, kept on
+        the card (the parameters copied: the next step updates them in place)."""
+        opt, metrics, grads = res
+        return {"loss": float(metrics["loss"]), "grads": grads, "m": opt["m"], "v": opt["v"],
+                "params": {k: p.detach().clone() for k, p in model.named_parameters()}}
+
+    # the first step on the reference route, while the card holds least: its
+    # plain products keep every modulus's plane of the LM head's 4096 x 64000
+    # weight gradient at once
+    step, opt = fresh(model)
+    launch_counts(reset=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with dispatch.mode_scope("ref"):
+        ref = kept(step(opt, batches[0]))
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    ref_launches = launch_counts()
+    ref_peak = torch.cuda.max_memory_allocated() / gib
+    del opt
+    print(f"train: the first step on the reference route {t_ref:.3f} s (host clock), peak "
+          f"memory {ref_peak:.3f} GiB; launches {ref_launches}", flush=True)
+    check(not any(ref_launches.values()), "train: the reference route launched no kernel")
+
+    # the same step on the kernel route (the warm-up), held against it
+    step, opt = fresh(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = step(opt, batches[0])
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    opt = res[0]
+    first = kept(res)
+    del res
+    diffs = {key: sum(n_diff(ref[key][k], first[key][k]) for k in first[key])
+             for key in ("grads", "params", "m", "v")}
+    print(f"train: warm-up step {t_warm:.3f} s (host clock), loss {first['loss']:.6f}",
+          flush=True)
+    check(ref["loss"] == first["loss"] and not any(diffs.values()),
+          f"train: reference vs kernel route, one step from the same parameters and batch: "
+          f"loss {ref['loss']!r} vs {first['loss']!r}, differing elements {diffs}")
+    del ref
+    L = cfg.num_layers
+    g = first.pop("grads")
+    zeros = [k for k in g if k.endswith(("mixer.wq.w", "mixer.wk.w", "mixer.wv.w"))]
+    check(len(zeros) == 3 * L and all(not g[k].any() for k in zeros),
+          f"train: every layer's wq, wk and wv gradient is exactly 0 under ozaki2_int8 "
+          f"(ROADMAP queue 3, item 17; {len(zeros)} tensors)")
+    others = [k for k in g if k not in zeros]
+    nonzero = [k for k in others if g[k].any()]
+    check(all(bool(torch.isfinite(g[k]).all()) for k in others) and nonzero,
+          f"train: every other gradient is finite, {len(nonzero)} of {len(others)} non-zero "
+          f"(zero: {sorted(set(others) - set(nonzero))})")
+    still = {k for k, p in first["params"].items() if not (p.any() or g[k].any())}
+    held = ("lm_head.w", f"layers.{L - 1}.mlp.wi_gate.w", f"layers.{L - 1}.mlp.wi_up.w",
+            f"layers.{L - 1}.mlp.wo.w")
+    g = {k: g[k] for k in held}
+    del first["m"], first["v"]
+
+    # the main path: TRAIN_STEPS steps on the kernel route, launch counts from 0
+    targets = {"forward": (Model, "apply"), "loss": (loop, "cross_entropy_loss"),
+               "backward": (torch.autograd, "grad"), "clip": (adamw, "clip_by_global_norm"),
+               "update": (adamw, "adamw_update")}
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    with step_parts(targets) as parts:
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt, metrics, grads = step(opt, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            del grads
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / gib
+    step_ms = 1e3 * statistics.mean(times)
+    by_part = {name: statistics.mean(a.elapsed_time(b) for a, b, _ in calls)
+               for name, calls in parts.items() if name != "recompute"}
+    per = {name: {k: sum(c[2][k] for c in calls) // TRAIN_STEPS
+                  for k in ("gemm_hilo", "attention_fused")} for name, calls in parts.items()}
+    bwd_own = {k: per["backward"][k] - per["recompute"][k] for k in per["backward"]}
+    print(f"train: {TRAIN_STEPS} steps at {step_ms:.3f} ms each (mean, host clock; "
+          f"{[round(1e3 * t, 3) for t in times]}), {tokens / (step_ms / 1e3):.1f} tokens/s; by "
+          f"part (CUDA events, mean a step): " + "; ".join(f"{k} {v:.3f} ms" for k, v in
+                                                            by_part.items()) +
+          f"; peak memory {peak:.3f} GiB (max_memory_allocated, the warm-up step's state "
+          f"kept beside); losses {losses}", flush=True)
+    print(f"train: launches a step: forward {per['forward']}, backward {per['backward']} of which "
+          f"remat's recompute {per['recompute']} and the backward's own products {bwd_own}; "
+          f"in all {launches}", flush=True)
+    want_fwd = {"gemm_hilo": 7 * L + 1, "attention_fused": L}
+    check(per["forward"] == want_fwd and per["recompute"] == {"gemm_hilo": 7 * L,
+                                                              "attention_fused": L}
+          and bwd_own == {"gemm_hilo": 2 * (7 * L + 1), "attention_fused": 0},
+          f"train: a step launches gemm_hilo 7 x {L} + 1 and attention_fused {L} in the forward, "
+          f"the same again in remat's recompute, and gemm_hilo 2 x (7 x {L} + 1) in the backward "
+          f"(dA and dB of every weight product; attention's gradient is exactly 0)")
+    check(launches["gemm_hilo"] == TRAIN_STEPS * (28 * L + 3) and
+          launches["attention_fused"] == TRAIN_STEPS * 2 * L and launches["gemv_hilo"] == 0,
+          f"train: the {TRAIN_STEPS} steps launched gemm_hilo and attention_fused on the main "
+          f"path ({launches})")
+    moved = {k for k, p in model.named_parameters() if not torch.equal(p, first["params"][k])}
+    check(all(math.isfinite(x) for x in losses) and moved == set(first["params"]) - still,
+          f"train: the {TRAIN_STEPS} steps' losses are finite ({losses}) and every parameter "
+          f"moved ({len(moved)} of {len(first['params'])}) but those that are 0 with a 0 "
+          f"gradient, which weight decay leaves at 0 ({sorted(still)})")
+
+    # the fp64 policy from the same parameters and batch
+    del model, step, opt, first["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(dataclasses.replace(cfg, policy_name="fp64")).load(
+        {k: v.to(dev) for k, v in init.items()})
+    step, opt = fresh(model)
+    _, metrics, grads = step(opt, batches[0])
+    loss64 = float(metrics["loss"])
+    gap = abs(first["loss"] - loss64) / abs(loss64)
+    rel = {k: float((grads[k] - g[k]).abs().max() / grads[k].abs().max()) for k in held}
+    print(f"train: fp64 policy, first step loss {loss64!r} (ozaki2_int8 {first['loss']!r}); "
+          f"relative gap of the gradients max |ozaki2_int8 - fp64| / max |fp64|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()), flush=True)
+    check(gap <= TRAIN_LOSS_TOL, f"train: the first step's loss within {TRAIN_LOSS_TOL:g} of the "
+          f"fp64 policy's, relative ({gap:.3e})")
+    del model, step, opt, grads, g, init, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gemm_hilo": launches["gemm_hilo"], "attention_fused": launches["attention_fused"]}
+
+
 def tme_phase(dev, gen, kernel_ms):
     """The TME instrument on the card: every kind under counters telemetry on the
     kernel route, checked against the phase's own CUDA events; returns the
@@ -2810,6 +3068,13 @@ def main():
         torch.cuda.empty_cache()
     GEMM_LAUNCHES["vjp"] = vjp_phase(dev)
     stamp("vjp")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = train_phase(dev)
+    GEMM_LAUNCHES["train"] = train_launches["gemm_hilo"]
+    attention_kernel["launches"] += train_launches["attention_fused"]
+    stamp("train")
+    gc.collect()
     torch.cuda.empty_cache()
     KERNEL_MS.update({"gemm": gemm_ms, "gemv": gemv[1]["ms"], "stencil7": stencil_kernel["ms"],
                       "spmv_bell": spmv_kernel["ms"], "attention prefill": attention_kernel["ms"],

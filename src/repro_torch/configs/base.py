@@ -7,8 +7,10 @@ same family for CPU tests).
 Layer topology is a repeating ``pattern`` of ``BlockCfg`` entries (mixer kind +
 MLP kind + attention window): ``num_layers // period`` periods plus a tail of
 the pattern's first ``num_layers % period`` blocks (gemma3's 34 = 5·6 + 4).
-Dtype names map to torch dtypes.  The reference's fields that only training
-reads (remat, force_unroll) come with ROADMAP slice 10, which reads them.
+Dtype names map to torch dtypes.  ``remat`` checkpoints each layer's
+activations under autograd (``transformer.Model.apply``); ``force_unroll``
+is the reference's switch from ``lax.scan`` to a Python loop over layers, and
+the port's layers always run as that loop.
 """
 
 from __future__ import annotations
@@ -75,6 +77,8 @@ class ModelConfig:
     policy_name: str = "bf16"        # precision policy for weight matmuls
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
+    remat: bool = True               # activation checkpointing per layer
+    force_unroll: bool = False       # the reference's Python loop over layers
     attn_chunk: int = 1024           # flash-style q-block size (0 = unchunked)
     ssm_chunk: int = 256             # mamba outer time-chunk
     lstm_chunk: int = 64             # xLSTM time-chunk

@@ -5,7 +5,8 @@
 the same plan; ``from_numpy`` / ``to_numpy`` move operands and results as
 numpy arrays (a single array, or a list, tuple or dict of them);
 ``params_from_jax`` turns ``repro``'s model parameters into the flat state that
-``models.transformer.Model.load`` takes.
+``models.transformer.Model.load`` takes, and ``opt_state_from_jax`` its AdamW
+state into ``optim.adamw``'s.
 """
 
 from __future__ import annotations
@@ -102,3 +103,13 @@ def params_from_jax(tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
         if key not in ("stack", "encoder") and key not in tails:
             _flatten({key: val}, "", state)
     return from_numpy(state, device)
+
+
+def opt_state_from_jax(state: Mapping, device="cuda") -> Dict:
+    """``repro``'s ``adamw_init`` / ``adamw_update`` state (leaves as numpy
+    arrays) -> ``optim.adamw``'s, on ``device``: the moments ``m`` and ``v``
+    unstacked and named as ``params_from_jax`` names the parameters (bfloat16
+    moments bit for bit), ``step`` an int32 0-dim tensor."""
+    dev = resolve_device(device)
+    return {"m": params_from_jax(state["m"], dev), "v": params_from_jax(state["v"], dev),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=dev)}

@@ -478,8 +478,30 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.to(f64).reshape(B, T, D)
     vf = v.to(f64).reshape(B, T, D)
     if kernel:
-        out = _attn.attention_fused(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bq=bq,
-                                    bkv=bkv)
+        def route(qf, kf, vf):
+            return _attn.attention_fused(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bq=bq,
+                                         bkv=bkv)
     else:
-        out = _attn.attention_ref(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bkv)
+        def route(qf, kf, vf):
+            return _attn.attention_ref(qf, kf, vf, mask, plan_qk, plan_pv, softcap, bkv)
+    out = _ZeroGradAttention.apply(qf, kf, vf, route)
     return obs.op_end(rec, out.reshape(lead + (S, D)))
+
+
+class _ZeroGradAttention(torch.autograd.Function):
+    """Emulated attention with the reference's gradient: exactly zero for q, k
+    and v on both routes (ROADMAP queue 3, item 17).  The reference has no
+    custom VJP here, and its Phase 1 rounds the operands to integers, so
+    ``jax.grad`` through it gives zeros; the kernel route has no autograd graph
+    and the reference route's integer casts cut it, so this function states
+    the zeros.  The native attention paths keep their true gradients."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, route):
+        ctx.metas = [(t.shape, t.dtype, t.device) for t in (qf, kf, vf)]
+        return route(qf, kf, vf)
+
+    @staticmethod
+    def backward(ctx, g):
+        zeros = [torch.zeros(shape, dtype=dt, device=dev) for shape, dt, dev in ctx.metas]
+        return (*zeros, None)

@@ -17,9 +17,11 @@ reference's.  Every weight product goes through the precision policy
 ``gemm_hilo``, or ``gemv_hilo`` for 16 columns or fewer (mLSTM's gate
 projection, 2·num_heads wide).  The recurrences are plain torch ops, as the
 reference's are XLA scans and einsums outside any Pallas kernel.  The
-reference's activation checkpointing (``remat``) and dry-run unrolling
-(``force_unroll``) have nothing to act on here: the loops are Python loops and
-serving runs under ``torch.no_grad``.
+reference's activation checkpointing (``remat``) acts here on whole layers, in
+``transformer.Model.apply``; the reference also checkpoints each time chunk,
+which changes its memory and not its values, and the port does not.  Its
+dry-run unrolling (``force_unroll``) has nothing to act on, since every loop
+here is already a Python loop.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import Policy
 from repro_torch.models import layers
@@ -193,8 +196,10 @@ def mamba_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, policy: Policy
     return layers.dense_apply(params["out_proj"], y, policy)
 
 
-def mamba_state_init(cfg: ModelConfig, batch: int, device="cpu") -> Dict:
-    """h (B, d_inner, d_state) and the conv's last K - 1 inputs, float32."""
+def mamba_state_init(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
+    """h (B, d_inner, d_state) and the conv's last K - 1 inputs, float32, on
+    ``device`` (default: the card)."""
+    device = convert.resolve_device(device)
     return {"h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state_dim), device=device),
             "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, cfg.d_inner), device=device)}
 
@@ -296,7 +301,10 @@ def mlstm_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, policy: Policy
     return layers.dense_apply(params["down_proj"], h, policy)
 
 
-def mlstm_state_init(cfg: ModelConfig, batch: int, device="cpu") -> Dict:
+def mlstm_state_init(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
+    """C (B, H, dh, dh), n (B, H, dh) and m (B, H), float32, on ``device``
+    (default: the card)."""
+    device = convert.resolve_device(device)
     H = cfg.num_heads
     dh = cfg.d_inner // H
     return {"C": torch.zeros((batch, H, dh, dh), device=device),
@@ -367,7 +375,10 @@ def slstm_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, policy: Policy
     return layers.dense_apply(params["down_proj"], h, policy)
 
 
-def slstm_state_init(cfg: ModelConfig, batch: int, device="cpu") -> Dict:
+def slstm_state_init(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
+    """c, n, m and h, each (B, H, d_inner / H) float32, on ``device`` (default:
+    the card)."""
+    device = convert.resolve_device(device)
     H = cfg.num_heads
     shape = (batch, H, cfg.d_inner // H)
     return {key: torch.zeros(shape, device=device) for key in ("c", "n", "m", "h")}

@@ -12,18 +12,30 @@ over frame embeddings (``encoder.{i}``, ``enc_norm``, ``enc_pos``) and a
 cross-attention in every decoder layer; its decode attends over a cross cache
 of zeros, as the reference's does (ROADMAP queue 3, item 16).  ``rope_type``
 "mrope" (qwen2-vl) takes three position streams (B, 3, S) with the embeddings.
+
+Parameters are registered frozen, so a served forward records no graph;
+training unfreezes them (``model.requires_grad_(True)``,
+``train.loop.make_train_step``).  Under autograd with ``cfg.remat`` each layer
+runs in a non-reentrant ``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` per pattern period: per layer or per period, the values are
+the same.  The recompute runs under the forward's dispatch and telemetry
+modes, since a CUDA backward runs on a thread of its own (``core.policy``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
+from repro_torch.core import dispatch
 from repro_torch.core.policy import Policy
 from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.obs import telemetry as obs
 
 
 # The recurrent mixer kinds: ``models.ssm`` names each one's functions
@@ -138,6 +150,28 @@ def block_decode_step(p: Dict, x: torch.Tensor, cache: Dict, blk: BlockCfg, cfg:
     return x, new_cache
 
 
+@contextlib.contextmanager
+def recompute_scope(modes: Tuple[str, str]):
+    """The dispatch and telemetry ``modes`` of a checkpointed layer's forward,
+    restored around its recompute in the backward."""
+    with dispatch.mode_scope(modes[0]), obs.telemetry_scope(modes[1]):
+        yield
+
+
+def _layer_runner(checkpointed: bool):
+    """Call a layer's function directly, or through a checkpoint whose
+    recompute sees the forward's modes."""
+    if not checkpointed:
+        return lambda fn, *args: fn(*args)
+    modes = (dispatch.get_mode(), obs.get_mode())
+
+    def contexts():
+        return contextlib.nullcontext(), recompute_scope(modes)
+
+    return lambda fn, *args: checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                   context_fn=contexts)
+
+
 # ---------------------------------------------------------------------------
 # Parameter trees as modules
 # ---------------------------------------------------------------------------
@@ -236,7 +270,31 @@ class Model(nn.Module):
             self.enc_pos = nn.Parameter(tree["enc_pos"], requires_grad=False)
         return self
 
+    def stacked_groups(self) -> List[List[str]]:
+        """The parameter names that the reference holds as one stacked leaf,
+        in groups of two or more: the same block's tensor in every pattern
+        period (``layers.{i * period + j}``, i over the periods), and every
+        encoder layer's.  Tail layers and the other parameters are leaves of
+        their own."""
+        cfg = self.cfg
+        stacked = cfg.num_periods * cfg.period
+        groups: Dict[Tuple, List[str]] = {}
+        for name, _ in self.named_parameters():
+            part, _, rest = name.partition(".")
+            if part == "layers" and int(rest.split(".")[0]) < stacked:
+                i, _, leaf = rest.partition(".")
+                groups.setdefault(("layers", int(i) % cfg.period, leaf), []).append(name)
+            elif part == "encoder":
+                groups.setdefault(("encoder", rest.partition(".")[2]), []).append(name)
+        return [names for names in groups.values() if len(names) > 1]
+
     # --- shared pieces --------------------------------------------------------
+
+    def _remat(self, x: torch.Tensor) -> bool:
+        """Whether to checkpoint the layers: ``cfg.remat`` while autograd
+        records this forward."""
+        return self.cfg.remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
 
     def _rope(self, positions: torch.Tensor, batch: Optional[int] = None):
         """(sin, cos) for ``positions``: (S,) for every rope type, or (B, 3, S)
@@ -275,17 +333,21 @@ class Model(nn.Module):
         x = enc_embeds.to(cfg.compute_torch_dtype)
         x = x + self.enc_pos.to(x.dtype)[None, :x.shape[1]]
         sin, cos = self._rope(torch.arange(x.shape[1], device=x.device))
+        run = _layer_runner(self._remat(x))
         for p in self.encoder:
-            x, _ = block_apply(p.tree(), x, ENC_BLOCK, cfg, self.policy, sin, cos, causal=False)
+            x, _ = run(lambda x, p=p: block_apply(p.tree(), x, ENC_BLOCK, cfg, self.policy, sin,
+                                                  cos, causal=False), x)
         return layers.rmsnorm_apply(self.enc_norm.tree(), x)
 
     # --- forward (prefill) ------------------------------------------------------
 
-    @torch.no_grad()
     def apply(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: {"tokens" (B, S) int | "embeds" (B, S, d)} [+ "positions" (B, 3,
         S) for M-RoPE, "enc_embeds" (B, T, d) for an encoder-decoder]; returns
-        (logits float32 (B, S, V), the layers' summed aux loss)."""
+        (logits float32 (B, S, V), the layers' summed aux loss).  Differentiable
+        in the parameters once they are unfrozen; each layer is checkpointed
+        under ``cfg.remat``.  The layers run as a Python loop, which is the
+        reference's ``cfg.force_unroll`` loop: that field changes nothing here."""
         cfg = self.cfg
         if "embeds" in batch:
             x = batch["embeds"].to(cfg.compute_torch_dtype)
@@ -298,9 +360,11 @@ class Model(nn.Module):
         sin, cos = self._rope(positions, batch=B)
         enc_out = self._encode(batch["enc_embeds"]) if cfg.family == "encdec" else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        run = _layer_runner(self._remat(x))
         for i, p in enumerate(self.layers):
-            x, a = block_apply(p.tree(), x, cfg.block_at(i), cfg, self.policy, sin, cos,
-                               enc_out=enc_out)
+            x, a = run(lambda x, enc_out, p=p, i=i: block_apply(
+                p.tree(), x, cfg.block_at(i), cfg, self.policy, sin, cos, enc_out=enc_out),
+                x, enc_out)
             aux = aux + a
         return self._head(x), aux
 

@@ -939,3 +939,64 @@ def test_cuda_telemetry_times_with_events_and_report(cuda_device):
             assert {(kind, "ref"), (kind, "kernel")} <= routes
     finally:
         obs.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_routes_bitwise(cuda_device):
+    """yi-6b-smoke's train step under ozaki2_int8 (float32, remat on) from the
+    same parameters and batch: the kernel and reference routes give the same
+    loss, gradients, updated parameters and moments; the kernel route launches
+    gemm_hilo and attention_fused (the forward's, again in remat's recompute),
+    the reference route neither, and the wq, wk and wv gradients are exactly 0
+    (ROADMAP queue 3, item 17)."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = registry.get_config("yi-6b", smoke=True, policy_name="ozaki2_int8",
+                              compute_dtype="float32")
+    init = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(5)).state_dict()
+    batch = synth_batch(DataConfig(global_batch=2, seq_len=16, seed=5), cfg, 0,
+                        device=cuda_device)
+    out = {}
+    for m in ("kernel", "ref"):
+        model = Model(cfg).load({k: v.clone() for k, v in init.items()})
+        opt = adamw.adamw_init(dict(model.named_parameters()))
+        before = (ozaki_gemm.gemm_hilo.launches, ozaki_attention.attention_fused.launches)
+        with dispatch.mode_scope(m):
+            opt, metrics, grads = loop.make_train_step(model)(opt, batch)
+        torch.cuda.synchronize()
+        launched = (ozaki_gemm.gemm_hilo.launches - before[0],
+                    ozaki_attention.attention_fused.launches - before[1])
+        out[m] = (float(metrics["loss"]), grads, model.state_dict(), opt, launched)
+    L = cfg.num_layers
+    assert out["kernel"][4] == (4 * 7 * L + 3, 2 * L) and out["ref"][4] == (0, 0)
+    assert out["kernel"][0] == out["ref"][0]
+    for i in (1, 2):
+        for k in out["ref"][i]:
+            torch.testing.assert_close(out["kernel"][i][k], out["ref"][i][k], rtol=0, atol=0)
+    for key in ("m", "v"):
+        for k in out["ref"][3][key]:
+            torch.testing.assert_close(out["kernel"][3][key][k], out["ref"][3][key][k],
+                                       rtol=0, atol=0)
+    grads = out["kernel"][1]
+    for k, g in grads.items():
+        assert bool(torch.isfinite(g).all())
+        assert bool((g == 0).all()) == k.endswith(("wq.w", "wk.w", "wv.w", "norm1.scale")), k
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_is_exactly_zero(cuda_device):
+    """dispatch.attention's backward on the kernel route: exactly zero for q,
+    k and v, in their shapes and dtypes, and the forward launched the kernel."""
+    q = _randn(cuda_device, 2, 4, 24, 64).float().requires_grad_(True)
+    k = _randn(cuda_device, 2, 4, 40, 64).float().requires_grad_(True)
+    v = _randn(cuda_device, 2, 4, 40, 64).float().requires_grad_(True)
+    before = ozaki_attention.attention_fused.launches
+    with dispatch.mode_scope("kernel"):
+        out = dispatch.attention(q, k, v, mask=torch.ones((24, 40), device=cuda_device))
+    assert ozaki_attention.attention_fused.launches == before + 1
+    (out * _randn(cuda_device, 2, 4, 24, 64)).sum().backward()
+    for t in (q, k, v):
+        assert t.grad.shape == t.shape and t.grad.dtype == torch.float32
+        assert not bool(t.grad.any())

@@ -183,10 +183,16 @@ def test_registry_init_and_unported_layers():
 
 
 @pytest.mark.parametrize("field", ["remat", "force_unroll"])
-def test_get_config_rejects_fields_the_port_does_not_read(field):
-    assert hasattr(jreg.get_config("yi-6b"), field)      # the reference's knob
-    with pytest.raises(TypeError):
-        registry.get_config("yi-6b", **{field: None})
+def test_get_config_reads_the_training_fields(field):
+    """remat (a checkpoint per layer under autograd) and force_unroll (the
+    reference's Python loop over layers, which the port always runs), with the
+    reference's value in every config, published and smoke."""
+    for arch in registry.list_archs():
+        for smoke in (False, True):
+            assert getattr(registry.get_config(arch, smoke=smoke), field) == \
+                getattr(jreg.get_config(arch, smoke=smoke), field)
+    default = getattr(registry.get_config("yi-6b"), field)
+    assert getattr(registry.get_config("yi-6b", **{field: not default}), field) is not default
 
 
 @pytest.mark.parametrize("field", ["mrope_sections", "encoder_seq", "frontend"])

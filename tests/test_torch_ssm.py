@@ -62,7 +62,7 @@ def _mixer(mixer, policy, seed=5, **over):
 
 def _decode(mixer, params, x, cfg, policy):
     """Token-by-token decode of x (B, S, d) from a fresh state: (outputs, state)."""
-    state = getattr(ssm, f"{mixer}_state_init")(cfg, x.shape[0])
+    state = getattr(ssm, f"{mixer}_state_init")(cfg, x.shape[0], device="cpu")
     outs = []
     for t in range(x.shape[1]):
         o, state = getattr(ssm, f"{mixer}_decode_step")(params, x[:, t:t + 1], state, cfg,
@@ -191,7 +191,7 @@ def test_decode_step_matches_reference_and_keeps_its_state(mixer):
     cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
     jcfg = dataclasses.replace(jcfg, compute_dtype="bfloat16")
     x = np.random.default_rng(19).standard_normal((2, 6, cfg.d_model)).astype(np.float32)
-    state = getattr(ssm, f"{mixer}_state_init")(cfg, 2)
+    state = getattr(ssm, f"{mixer}_state_init")(cfg, 2, device="cpu")
     jstate = getattr(jssm, f"{mixer}_state_init")(jcfg, 2)
     shapes = {k: (tuple(v.shape), v.dtype) for k, v in state.items()}
     assert {k: s for k, (s, _) in shapes.items()} == \
