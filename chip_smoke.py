@@ -234,6 +234,25 @@ Phases (each prints its results; any failed check makes the script exit 1):
          gradient exactly 0 (ROADMAP queue 3, item 17), every other finite;
          its loss within TRAIN_LOSS_TOL of the fp64 policy's, and the
          relative gap of the LM head's and last MLP's gradients.
+  resume checkpoints and recovery (``train.checkpoint``,
+         ``train.fault_tolerance``) and the launcher (``launch.train``).  The
+         main path, launch counts set to 0 just before and read just after:
+         yi-6b as in the train phase (full width, 2 of 32 layers,
+         ozaki2_int8, float32, remat, batches of 4 x 512) with AdamW's
+         bfloat16 moments, 4 uninterrupted steps from a seeded state, then 4
+         steps from the same state through ``run_with_recovery`` with a
+         checkpoint every 2 steps (~7.0 GB each: float32 weights, bfloat16
+         moments) and a StepFailure on the third call: one failure, one
+         restore, 4 steps run, its one delay recorded, and the parameters,
+         moments and step bitwise the uninterrupted run's; gemm_hilo 7 x 2 + 1
+         + 7 x 2 + 2 x 15 and attention_fused 2 x 2 a step.  Each save's host
+         snapshot and write (host clock), the restore with verify, their
+         GB/s; the disk's free space before.  Then ``launch.train.main``
+         in-process at --smoke, ozaki2_int8, 6 steps with a checkpoint every
+         3, its step 6 moved aside and the command run again: it resumes from
+         step 3 and writes step 6 bitwise again; its 9 steps' launches by the
+         same formula at 2 layers.  The checkpoints live under ``_ckpt/``
+         and are deleted at the end of the phase.
   tme    the TME model on the card: under ``telemetry_scope("counters")`` on the
          kernel route, DGEMM 8192^3 (3 calls), GEMV 8192^2 x 1, stencil7 256^3,
          HPCG 104^3 SpMV, attention at causal prefill 32 x 512 x 512 and decode
@@ -325,6 +344,18 @@ TRAIN_STEPS = 3          # timed steps after one warm-up step
 # Measured 0 on an H100 (the losses' float32 bits were equal; the LM head's
 # and last MLP's gradients within 1.4e-7), so 8 float32 epsilons of room.
 TRAIN_LOSS_TOL = 1e-6
+# The resume phase: yi-6b as in the train phase, with bfloat16 moments (the
+# checkpoint's bfloat16 leaves, ROADMAP queue 3, item 19).  RESUME_STEPS
+# uninterrupted steps, then the same through ``run_with_recovery`` with a
+# checkpoint every RESUME_CKPT_EVERY steps and a StepFailure on call
+# RESUME_FAIL_CALL; and the launcher's CLI at --smoke, run whole and then
+# resumed from its step CLI_EVERY after its last checkpoint is moved aside.
+RESUME_STEPS = 4
+RESUME_CKPT_EVERY = 2
+RESUME_FAIL_CALL = 3
+CLI_STEPS = 6
+CLI_EVERY = 3
+CKPT_ROOT = os.path.join(ROOT, "_ckpt")   # the phase's checkpoints (listed in .gitignore)
 
 FAILURES = []
 KERNEL_MS = {}           # kernel times of this run that the tme phase reads
@@ -2727,6 +2758,221 @@ def train_phase(dev):
     return {"gemm_hilo": launches["gemm_hilo"], "attention_fused": launches["attention_fused"]}
 
 
+@contextlib.contextmanager
+def host_timed(targets):
+    """While the block runs, record the host clock's (start, end) of every
+    call of ``targets[name] = (owner, attribute)``.  Yields {name: [(start,
+    end)]}."""
+    calls = {name: [] for name in targets}
+    real = {name: getattr(owner, attr) for name, (owner, attr) in targets.items()}
+
+    def wrap(name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kw)
+            finally:
+                calls[name].append((t0, time.perf_counter()))
+        return call
+
+    for name, (owner, attr) in targets.items():
+        setattr(owner, attr, wrap(name))
+    try:
+        yield calls
+    finally:
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, real[name])
+
+
+def bits_differ(a, b):
+    """Count of elements whose bit patterns differ (dtypes must agree)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return max(a.numel(), b.numel())
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return int((a != b).sum())
+
+
+def resume_phase(dev):
+    """yi-6b's training resumed after an injected failure at full width, and
+    the launcher's CLI resumed from its checkpoint; returns the launches of
+    both main paths."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint, fault_tolerance, loop
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(TRAIN_ARCH, num_layers=TRAIN_LAYERS, policy_name="ozaki2_int8",
+                              compute_dtype="float32")
+    opt_cfg = adamw.AdamWConfig(moment_dtype="bfloat16")
+    L = cfg.num_layers
+    os.makedirs(CKPT_ROOT, exist_ok=True)
+    disk = shutil.disk_usage(CKPT_ROOT)
+    print(f"resume: {cfg.name} at full width, {L} of {registry.get_config(TRAIN_ARCH).num_layers} "
+          f"layers, {cfg.policy_name}, float32 weights and compute, remat {cfg.remat}; AdamW "
+          f"with {opt_cfg.moment_dtype} moments; batches of {TRAIN_BATCH} x {TRAIN_SEQ}; "
+          f"{RESUME_STEPS} steps, a checkpoint every {RESUME_CKPT_EVERY}, a StepFailure on call "
+          f"{RESUME_FAIL_CALL}; disk at {CKPT_ROOT} before the phase: {disk.free / 1e9:.1f} GB "
+          f"free of {disk.total / 1e9:.1f} GB (shutil.disk_usage)", flush=True)
+    root = tempfile.mkdtemp(dir=CKPT_ROOT)
+    pipe = Pipeline(DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED), cfg,
+                    device=dev)
+    try:
+        batches = [next(pipe) for _ in range(RESUME_STEPS)]
+    finally:
+        pipe.close()
+    try:
+        model = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED + 8))
+        params = dict(model.named_parameters())
+        init = checkpoint.snapshot(params)
+        step = loop.make_train_step(model, opt_cfg, warmup_steps=1, total_steps=RESUME_STEPS)
+        n = sum(p.numel() for p in params.values())
+        nbytes = sum(p.numel() * p.element_size() for p in params.values()) + 2 * 2 * n + 4
+
+        # the main path: the uninterrupted steps, then the recovery run
+        launch_counts(reset=True)
+        opt = adamw.adamw_init(params, opt_cfg)
+        for b in batches:
+            opt, _, _ = step(opt, b)
+        torch.cuda.synchronize()
+        want = {"params": {k: p.detach().clone() for k, p in params.items()}, "opt": opt}
+        del opt
+        loop.load_params(model, init)
+
+        calls, delays = [0], []
+
+        def step_fn(i, state):
+            calls[0] += 1
+            if calls[0] == RESUME_FAIL_CALL:
+                raise fault_tolerance.StepFailure(f"injected on call {calls[0]}")
+            live = loop.load_params(model, state["params"])
+            new_opt, metrics, _ = step(state["opt"], batches[i])
+            return {"params": live, "opt": new_opt}, metrics
+
+        ckpt_dir = os.path.join(root, "run")
+        targets = {"snapshot": (checkpoint, "snapshot"), "write": (checkpoint, "save"),
+                   "save": (checkpoint.AsyncWriter, "save"),
+                   "restore": (checkpoint, "restore")}
+        t0 = time.perf_counter()
+        with host_timed(targets) as timed:
+            state, stats = fault_tolerance.run_with_recovery(
+                step_fn, {"params": params, "opt": adamw.adamw_init(params, opt_cfg)},
+                num_steps=RESUME_STEPS, ckpt_dir=ckpt_dir, ckpt_every=RESUME_CKPT_EVERY,
+                sleep=delays.append)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches = launch_counts()
+        got = {"params": state["params"], "opt": state["opt"]}
+        diff = {f"{part}/{k}": bits_differ(got[part][k], want[part][k])
+                for part in ("params",) for k in want["params"]}
+        diff.update({f"opt/{m}/{k}": bits_differ(got["opt"][m][k], want["opt"][m][k])
+                     for m in ("m", "v") for k in want["opt"]["m"]})
+        diff["opt/step"] = bits_differ(got["opt"]["step"], want["opt"]["step"])
+        by_part = {part: sum(v for k, v in diff.items() if k.startswith(part))
+                   for part in ("params", "opt/m", "opt/v", "opt/step")}
+        print(f"resume: recovery run {t_run:.3f} s (host clock), stats {stats}, delays {delays}; "
+              f"differing elements against {RESUME_STEPS} uninterrupted steps: {by_part}",
+              flush=True)
+        check(stats == {"failures": 1, "restores": 1, "steps_run": RESUME_STEPS}
+              and delays == [1.0],
+              f"resume: run_with_recovery took one failure and one restore and ran "
+              f"{RESUME_STEPS} steps ({stats}, delays {delays})")
+        check(not any(diff.values()) and int(got["opt"]["step"]) == RESUME_STEPS
+              and got["opt"]["m"]["lm_head.w"].dtype == torch.bfloat16,
+              f"resume: after the failure and the restore, the parameters, bfloat16 moments and "
+              f"step are bitwise the uninterrupted run's ({sum(diff.values())} differing "
+              f"elements of {3 * n + 1})")
+        files = [os.path.join(ckpt_dir, f"step_{s:08d}", "host0000.npz")
+                 for s in (RESUME_CKPT_EVERY, RESUME_STEPS)]
+        sizes = [os.path.getsize(f) for f in files]
+        counted = {name: len(v) for name, v in timed.items()}
+        check(counted == {"snapshot": 3, "write": 2, "save": 2, "restore": 1},
+              f"resume: run_with_recovery's entry snapshot, two saves (a snapshot and a write "
+              f"each) and one restore ({counted})")
+        gb = nbytes / 1e9
+        for i, (size, f) in enumerate(zip(sizes, files)):
+            (s0, _), (p0, p1), (w0, w1) = timed["save"][i], timed["snapshot"][i + 1], \
+                timed["write"][i]
+            print(f"resume: save of {os.path.basename(os.path.dirname(f))}: {nbytes} bytes of "
+                  f"leaves ({size} on disk), from AsyncWriter.save to the end of its write (what "
+                  f"wait() waits for) {w1 - s0:.3f} s ({gb / (w1 - s0):.3f} GB/s): the host "
+                  f"snapshot {p1 - p0:.3f} s, the write and checksums on the thread "
+                  f"{w1 - w0:.3f} s (into the page cache: no fsync)", flush=True)
+        (r0, r1), (e0, e1) = timed["restore"][0], timed["snapshot"][0]
+        print(f"resume: restore with verify {r1 - r0:.3f} s ({gb / (r1 - r0):.3f} GB/s; the "
+              f"file was just written, so the read was warm); run_with_recovery's entry "
+              f"snapshot {e1 - e0:.3f} s", flush=True)
+        per_step = {"gemm_hilo": 28 * L + 3, "attention_fused": 2 * L}
+        steps_run = RESUME_STEPS + stats["steps_run"]
+        print(f"resume: launches {launches} over {steps_run} steps", flush=True)
+        check(launches == {"gemm_hilo": steps_run * per_step["gemm_hilo"], "gemv_hilo": 0,
+                           "attention_fused": steps_run * per_step["attention_fused"],
+                           "carry_fold": 0},
+              f"resume: the {steps_run} steps launched gemm_hilo {per_step['gemm_hilo']} and "
+              f"attention_fused {per_step['attention_fused']} a step (the train phase's "
+              f"formula)")
+        del model, step, state, got, want, init, params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the launcher's CLI, whole and then resumed after its last checkpoint is moved aside
+        cli_dir, aside = os.path.join(root, "cli"), os.path.join(root, "aside")
+        argv = ["--arch", TRAIN_ARCH, "--smoke", "--policy", "ozaki2_int8", "--steps",
+                str(CLI_STEPS), "--ckpt-every", str(CLI_EVERY), "--device", "cuda",
+                "--ckpt-dir", cli_dir]
+        last = f"step_{CLI_STEPS:08d}"
+        outs = []
+        launch_counts(reset=True)
+        for run in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                launch_train.main(argv)
+            outs.append(buf.getvalue())
+            for line in outs[-1].splitlines():
+                print(f"resume: cli run {run + 1}: {line}", flush=True)
+            if run == 0:
+                os.makedirs(aside)
+                os.replace(os.path.join(cli_dir, last), os.path.join(aside, last))
+        cli_launches = launch_counts()
+        smoke = registry.get_config(TRAIN_ARCH, smoke=True)
+        cli_steps = CLI_STEPS + (CLI_STEPS - CLI_EVERY)
+        want_cli = {"gemm_hilo": cli_steps * (28 * smoke.num_layers + 3), "gemv_hilo": 0,
+                    "attention_fused": cli_steps * 2 * smoke.num_layers, "carry_fold": 0}
+        manifests = [json.load(open(os.path.join(d, last, checkpoint.MANIFEST)))
+                     for d in (cli_dir, aside)]
+        with np.load(os.path.join(cli_dir, last, "host0000.npz")) as z1, \
+                np.load(os.path.join(aside, last, "host0000.npz")) as z2:
+            cli_diff = [k for k in z1.files if z1[k].tobytes() != z2[k].tobytes()]
+            same_keys = z1.files == z2.files
+        check("resumed" not in outs[0] and f"resumed from step {CLI_EVERY}" in outs[1]
+              and all(o.rstrip().endswith("done") for o in outs),
+              f"resume: the CLI ran {CLI_STEPS} steps, then resumed from step {CLI_EVERY}")
+        check(same_keys and not cli_diff and manifests[0] == manifests[1],
+              f"resume: the CLI's resumed step {CLI_STEPS} is bitwise its uninterrupted step "
+              f"{CLI_STEPS} ({len(cli_diff)} leaves differ of {len(manifests[0]['dtypes'])}; "
+              f"manifests equal: {manifests[0] == manifests[1]})")
+        check(cli_launches == want_cli,
+              f"resume: the CLI's {cli_steps} steps launched {cli_launches} (the train phase's "
+              f"formula at {smoke.num_layers} layers: {want_cli})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"resume: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: launches[k] + cli_launches[k] for k in ("gemm_hilo", "attention_fused")}
+
+
 def tme_phase(dev, gen, kernel_ms):
     """The TME instrument on the card: every kind under counters telemetry on the
     kernel route, checked against the phase's own CUDA events; returns the
@@ -3074,6 +3320,12 @@ def main():
     GEMM_LAUNCHES["train"] = train_launches["gemm_hilo"]
     attention_kernel["launches"] += train_launches["attention_fused"]
     stamp("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume_launches = resume_phase(dev)
+    GEMM_LAUNCHES["resume"] = resume_launches["gemm_hilo"]
+    attention_kernel["launches"] += resume_launches["attention_fused"]
+    stamp("resume")
     gc.collect()
     torch.cuda.empty_cache()
     KERNEL_MS.update({"gemm": gemm_ms, "gemv": gemv[1]["ms"], "stencil7": stencil_kernel["ms"],

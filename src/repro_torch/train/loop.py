@@ -13,7 +13,7 @@ device the port has none.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +113,18 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig
         return opt_state, out, grads
 
     return train_step
+
+
+@torch.no_grad()
+def load_params(model: Model, params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Copy ``params`` (keyed by ``state_dict`` names) into the model's own
+    parameters, which the train step reads and updates in place, skipping
+    those that already are them; returns the model's parameters by name."""
+    live = dict(model.named_parameters())
+    for k, p in live.items():
+        if params[k] is not p:
+            p.copy_(params[k])
+    return live
 
 
 def make_eval_step(model: Model) -> Callable:
